@@ -15,6 +15,8 @@ import os
 import sys
 import time
 
+from ..runtime import device_info, enable_compile_cache
+
 
 def _hms(seconds: float) -> str:
     h = int(seconds // 3600)
@@ -105,10 +107,10 @@ def cmd_render(args) -> int:
                     ck_err[0] = e
 
             def ckpt_cb(s):
-                # ASYNC checkpointing: the device->host fetch rides a
-                # (possibly slow) transport and would otherwise
-                # serialize the render for its whole duration. Snapshot
-                # the state on DEVICE (cheap HBM copy — the live buffers
+                # ASYNC checkpointing: the device->host fetch and the
+                # file write would otherwise serialize the render for
+                # their whole duration. Snapshot
+                # the state on DEVICE (cheap device copy — the live buffers
                 # are donated to the next chunk and must not be read
                 # concurrently), then fetch+write on a worker thread
                 # overlapped with the next render chunks. If a save is
@@ -192,10 +194,12 @@ def cmd_render(args) -> int:
     dt = time.time() - t_start
     print(f"\nDone! (completed in {_hms(dt)})")
     rays = width * height * samples
+    dev = device_info()
     print(f"[{rays / max(t_render, 1e-9):,.0f} primary rays/s "
           f"({width}x{height} @ {samples}spp; load "
           f"{t_render0 - t_start:.1f}s render {t_render:.1f}s "
-          f"encode {t_enc:.1f}s)]")
+          f"encode {t_enc:.1f}s) on {dev['platform']} {dev['kind']} "
+          f"x{dev['count']}]")
     return rc
 
 
@@ -317,8 +321,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "to DIR (view with xprof/tensorboard)")
         sp.add_argument("--debug-nans", action="store_true",
                         help="jax debug_nans: fail loudly on the first "
-                             "NaN instead of scrubbing at the film "
-                             "(the TPU analogue of a sanitizer run)")
+                             "NaN instead of scrubbing at the film")
 
     sp = sub.add_parser("render", help="render a YAML scene")
     common(sp)
@@ -340,6 +343,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     # bare `prog scene.yaml` mirrors the reference binary: treat the first
     # token as a scene path for `render` (main.cpp:146-151)

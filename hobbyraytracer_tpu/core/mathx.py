@@ -29,9 +29,8 @@ def length(v: jnp.ndarray) -> jnp.ndarray:
 def normalize(v: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
     """glm::normalize. With eps=0 matches glm (NaN on zero vectors).
 
-    rsqrt on the packed (batch,) reduction + broadcast multiply: divisions
-    and square roots are multi-cycle VPU ops whose cost scales with PADDED
-    lanes, so never run them on (N,1)/(N,3)-shaped values."""
+    rsqrt on the (batch,) reduction + broadcast multiply: one square root
+    per vector instead of one division per component."""
     n2 = jnp.sum(v * v, axis=-1)
     if eps:
         n2 = jnp.maximum(n2, eps * eps)
@@ -103,12 +102,10 @@ def take_rows(table: jnp.ndarray, idx: jnp.ndarray,
               max_select: int = 8) -> jnp.ndarray:
     """`table[idx]` for a SMALL leading axis without a device gather.
 
-    XLA lowers a wavefront-sized row gather on TPU to roughly a
-    microsecond per row (round-2 profiling: the material/texture table
-    gathers rivaled the whole traversal kernel); for tables of
-    <= max_select rows a compare+select chain is pure wavefront-wide VPU
-    work instead. Larger tables fall back to the native gather. Gradients
-    flow to each selected row exactly as the gather's would.
+    For tables of <= max_select rows a compare+select chain is pure
+    wavefront-wide elementwise work instead of a per-lane gather. Larger
+    tables fall back to the native gather. Gradients flow to each
+    selected row exactly as the gather's would.
     """
     m = table.shape[0]
     if m > max_select or m == 0:

@@ -3,7 +3,7 @@
 The reference uses glm's global stateful RNG (`glm::linearRand`,
 `glm::sphericalRand`, `glm::ballRand` — e.g. main.cpp:120-121,
 material.h:139,81, constantMedium.cpp:25), which is unreproducible across
-threads. TPU-native replacement: explicit `jax.random` threefry keys folded
+threads. Replacement: explicit `jax.random` threefry keys folded
 by (purpose, bounce); per-ray decorrelation comes from drawing shaped arrays
 indexed by the ray's position in the batch, so a render is a pure function
 of (seed, batch layout). Parity with the reference is therefore statistical

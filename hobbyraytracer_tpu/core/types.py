@@ -2,16 +2,17 @@
 
 Replaces the reference's per-ray structs (`ray` in ray.h, `hitRecord` in
 hittable.h:8-25) with struct-of-arrays pytrees: every field is a batched
-array over N rays, so the whole wavefront lives in HBM and every op is a
-vectorized kernel.
+array over N rays, so the whole wavefront lives in device memory and
+every op is a vectorized kernel.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from . import struct
 
-@flax.struct.dataclass
+
+@struct.dataclass
 class Rays:
     """A wavefront of rays. o/d: (N,3) float32."""
     o: jnp.ndarray
@@ -25,7 +26,7 @@ class Rays:
         return self.o.shape[0]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Hits:
     """SoA hit records (reference: hittable.h:8-25 `hitRecord`).
 

@@ -84,14 +84,19 @@ def project(cam: Camera, p: jnp.ndarray) -> jnp.ndarray:
     """World points (N,3) -> image coordinates (N,2) = (s,t) in [0,1]
     (the get_rays parameterization): intersect the origin->p line with the
     focal plane spanned by (horizontal, vertical) at lower_left_corner."""
+    # 3-vector dot products as elementwise sums: a float32 matmul may run
+    # in TF32 on a GPU (~3 decimal digits), too coarse for pixel positions
+    def dot(x, y):
+        return jnp.sum(x * y, axis=-1)
+
     d = p - cam.origin
-    f = -jnp.dot(cam.lower_left_corner - cam.origin, cam.w)
-    denom = d @ cam.w                       # negative for points in front
+    f = -dot(cam.lower_left_corner - cam.origin, cam.w)
+    denom = dot(d, cam.w)                   # negative for points in front
     alpha = -f / denom
     x = cam.origin + alpha[:, None] * d
     rel = x - cam.lower_left_corner
-    s = (rel @ cam.u) / jnp.dot(cam.horizontal, cam.u)
-    t = (rel @ cam.v) / jnp.dot(cam.vertical, cam.v)
+    s = dot(rel, cam.u) / dot(cam.horizontal, cam.u)
+    t = dot(rel, cam.v) / dot(cam.vertical, cam.v)
     return jnp.stack([s, t], axis=-1)
 
 

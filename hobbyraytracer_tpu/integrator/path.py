@@ -2,7 +2,7 @@
 
 The reference integrates one ray at a time with an iterative bounce loop
 (rayColour, main.cpp:38-79) inside a per-pixel thread pool (render,
-main.cpp:81-140). TPU-native: the whole pixel/sample batch is one SoA
+main.cpp:81-140). Here the whole pixel/sample batch is one SoA
 wavefront; the bounce loop is a `lax.while_loop` whose per-ray `break`s are
 active-mask updates, with an early exit when every ray has terminated
 (average path length is far below MAX_DEPTH, so this matters).
@@ -136,7 +136,8 @@ def trace_diff(scene: scene_ir.SceneIR, rays: Rays, key: jax.Array,
             jnp.ones((n, 3), jnp.float32), jnp.ones((n,), jnp.bool_))
     # rematerialize each bounce in the backward pass: reverse-mode memory
     # is O(depth x carry) instead of O(depth x every intermediate) —
-    # without this, fits above toy sizes OOM long before HBM is the limit
+    # without this, fits above toy sizes OOM long before device memory is
+    # the limit
     (_, _, result, _, _), _ = jax.lax.scan(
         jax.checkpoint(body), init, jnp.arange(max_depth, dtype=jnp.int32))
     return result

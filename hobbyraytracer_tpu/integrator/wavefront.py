@@ -1,4 +1,4 @@
-"""Regenerative wavefront integrator (the TPU performance path).
+"""Regenerative wavefront integrator (the performance path).
 
 The round-1 integrator traced the whole pixel batch through a bounce
 `while_loop` that only stops when EVERY ray has terminated — so by bounce
@@ -6,7 +6,7 @@ The round-1 integrator traced the whole pixel batch through a bounce
 traversal. The reference has no such waste: each CPU thread simply moves to
 the next pixel when a path dies (main.cpp:111-135).
 
-The TPU-native equivalent of "move to the next pixel" is *ray
+The data-parallel equivalent of "move to the next pixel" is *ray
 regeneration*: keep a fixed-size pool of P lanes; every iteration traces
 ONE path segment for every lane; lanes whose paths terminate immediately
 start the next sample (or pull the next work item off a global queue).
@@ -17,9 +17,8 @@ Radiance recurrence per segment is identical to integrator/path.py (and
 main.cpp:43-76): miss adds throughput*background, hits add
 throughput*emitted, scatter multiplies throughput or terminates.
 
-Two round-3 design points, both driven by measured TPU scatter cost
-(~16 ns per scattered ELEMENT regardless of formulation — sort-based,
-ticket-election, segmented-scan and scatter-add all bottom out there):
+Two design points, both driven by the cost of scatters (which grows with
+the number of scattered elements, whatever the formulation):
 
 - SAMPLE CHUNKING: one work item covers SAMPLE_CHUNK consecutive samples
   of one pixel. A lane finishing a sample starts the pixel's next sample
@@ -27,11 +26,9 @@ ticket-election, segmented-scan and scatter-add all bottom out there):
   the completed chunk retires to the framebuffer. Framebuffer traffic
   drops by the chunk factor with zero idle lanes.
 - COMPACTED PLANAR RETIREMENT: finished lanes are compacted with ONE
-  argsort (~1.3 ms at 262k lanes — sorts are cheap, scatters are not),
-  then at most RETIRE_CAP (pixel, rgb) entries are scatter-added per
-  channel into a PLANAR (3, W*H) accumulator. Row-wise (P,3) scatters
-  cost ~24 ms at this pool size (the 3-wide row pads to a full 128-lane
-  tile); three flat (C,) scatters cost ~1 ms each. Colliding indices are
+  argsort, then at most RETIRE_CAP (pixel, rgb) entries are scatter-added
+  per channel into a PLANAR (3, W*H) accumulator as three flat (C,)
+  scatters instead of one row-wise (P,3) scatter. Colliding indices are
   ALLOWED (scatter-add is atomic in XLA semantics), so no winner election
   or deferral machinery is needed; the cap only defers retirement (flag
   `defer`) in the rare segment where more than RETIRE_CAP lanes finish.
@@ -46,11 +43,10 @@ import os
 from functools import partial
 from typing import Callable, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
-from ..core import rng
+from ..core import rng, struct
 from ..core.types import Rays
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
@@ -58,21 +54,14 @@ from ..ops.camera import Camera, get_rays
 from ..scene import ir as scene_ir
 from .path import MAX_DEPTH, background_colour
 
-# Pool-size sweep on the chip. Round 3 (BLOCK=1024): 64k/96k/128k ≈
-# 4.3M plateau, 256k -> 3.63M, 512k cliffs. Re-swept in round 5 at the
-# new BLOCK=256 + per-ray masked visiting (teapot, 100spp): 64k ->
-# 5.94M, 128k -> 6.31M, 192k -> 6.39M, 256k -> 5.35M; 192k also wins
-# on cornell (31.3M vs 29.1M) and hires (1.91M vs 1.86M), ties balls.
+# Lanes in the ray pool. Not yet swept on the H100.
 DEFAULT_POOL = 196_608   # 1.5 * 2^17 lanes
 SAMPLE_CHUNK = int(os.environ.get("HRT_SAMPLE_CHUNK", "4"))
 # RETIRE_CAP divisor: cap = pool // RETIRE_DIV rows scattered per
-# segment. The three flat per-channel scatters scale with cap (16 ns/
-# row, PERF.md cost model), so the cap wants to sit JUST above the
-# typical finishers/segment (~9k at the 128k pool: pool / ~3.5
-# segments-per-sample / chunk). Round-4 sweep on the chip: teapot
-# 4.31/4.64/4.69/4.30/3.24 M rays/s and cornell 17.2/—/29.4/27.7/20.8 M
-# at divisors 4/8/12/16/24 — beyond 12 the defer path (extra segments)
-# eats the scatter saving. Floor of 64 keeps tiny pools exact.
+# segment. The three flat per-channel scatters scale with cap, so the cap
+# wants to sit JUST above the typical finishers per segment (pool / mean
+# segments-per-sample / chunk); too low and the defer path adds segments.
+# Not yet swept on the H100. Floor of 64 keeps tiny pools exact.
 RETIRE_DIV = int(os.environ.get("HRT_RETIRE_DIV", "12"))
 if RETIRE_DIV < 1:
     raise ValueError(
@@ -89,13 +78,12 @@ _REGEN = 101
 # Pool-level coherence sort period (see _segment): 0 = off (per-mesh
 # sort inside intersect), N >= 1 = permute the whole lane pool by the
 # mesh key every N segments and skip the per-mesh sort. Read ONCE at
-# import — an env lookup inside the traced function would re-read per
-# trace and is exactly the kind of hidden trace-time dependency that
-# broke round 3.
+# import — an env lookup inside the traced function is a hidden
+# trace-time dependency the jit cache cannot see.
 POOL_SORT = int(os.environ.get("HRT_POOL_SORT", "0") or 0)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class PoolState:
     """Complete render state — serializable for checkpoint/resume."""
     fb: jnp.ndarray        # (3, W*H) f32 PLANAR radiance accumulator (sum)
@@ -202,10 +190,13 @@ def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
 def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
              height: int, key, max_depth: int, samples: int,
              sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-             pool_sort: Optional[int] = None) -> PoolState:
+             pool_sort: Optional[int] = None,
+             mesh_backend: str = "auto") -> PoolState:
     """Trace one path segment for every active lane; roll finished samples
     into the next sample of their chunk; retire finished chunks into the
-    framebuffer via the compacted planar scatter."""
+    framebuffer via the compacted planar scatter. mesh_backend: the mesh
+    find ("auto" = the platform's default, scene/ir.py:
+    _resolve_mesh_backend; "xla" forces the lock-step traversal)."""
     wh = width * height
     pool = state.item.shape[0]
     chunk, n_chunks, last = _chunk_geometry(samples, sample_chunk)
@@ -215,10 +206,8 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
     # per-mesh sort+unsort inside intersect for ALL segments. Wavefronts
     # mutate slowly (mean path length ~3-4 segments under RR), so a
     # stale permutation keeps most of the visit-count win while paying
-    # the packed (P,16) permute gather only 1/N of the time. Measured on
-    # the teapot bench (round 4): N=1 every segment LOSES (the permute
-    # costs as much as the per-mesh sort it replaces), the amortized
-    # periods are in PERF.md.
+    # the packed (P,16) permute gather only 1/N of the time. Off by
+    # default; not yet measured on the H100.
     if pool_sort is None:
         pool_sort = POOL_SORT
     period = int(pool_sort)
@@ -241,7 +230,8 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
                 rad=packed[:, 9:12], item=ints[:, 0], depth=ints[:, 1],
                 sub=ints[:, 2], defer=ints[:, 3] != 0)
 
-        if scene_ir.has_wavefront_sort_key(scene):
+        if (mesh_backend == "auto"
+                and scene_ir.has_wavefront_sort_key(scene)):
             if period == 1:
                 state = _pool_permute(state)
             else:
@@ -252,7 +242,8 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
             mesh_cohsort = False
     r = Rays(o=state.o, d=state.d)
     hits = scene_ir.intersect_scene(scene, r, key, state.it,
-                                    ray_valid=active, mesh_backend="auto",
+                                    ray_valid=active,
+                                    mesh_backend=mesh_backend,
                                     mesh_cohsort=mesh_cohsort)
 
     miss = active & ~hits.hit
@@ -332,12 +323,13 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
     )
 
 
-@partial(jax.jit, static_argnums=(5, 6, 8, 11, 12), donate_argnums=0)
+@partial(jax.jit, static_argnums=(5, 6, 8, 11, 12, 13), donate_argnums=0)
 def _pool_run(state: PoolState, scene, camera, key, n_steps,
               width: int, height: int, total_items,
               max_depth: int, samples=1,
               sample_chunk=SAMPLE_CHUNK, rr: bool = True,
-              pool_sort: Optional[int] = None) -> PoolState:
+              pool_sort: Optional[int] = None,
+              mesh_backend: str = "auto") -> PoolState:
     """Advance the pool by up to n_steps iterations (stops early when the
     whole render is done). Donated state -> in-place buffer reuse."""
 
@@ -350,7 +342,7 @@ def _pool_run(state: PoolState, scene, camera, key, n_steps,
         s, i = c
         s = _regenerate(s, camera, width, height, total_items, key)
         s = _segment(s, scene, width, height, key, max_depth, samples,
-                     sample_chunk, rr, pool_sort)
+                     sample_chunk, rr, pool_sort, mesh_backend)
         return s, i + 1
 
     state, _ = jax.lax.while_loop(cond, body, (state, jnp.int32(0)))
@@ -367,6 +359,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  sample_chunk: int = SAMPLE_CHUNK,
                  rr: bool = True,
                  pool_sort: Optional[int] = None,
+                 mesh_backend: str = "auto",
                  ) -> PoolState:
     """Run the pool to completion; returns the final state (fb holds the
     radiance SUM over `samples` samples per pixel).
@@ -378,7 +371,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     `state` resumes from a checkpoint (see checkpoint.py).
     pool_sort: pool-level coherence-sort PERIOD (int: permute the whole
     lane pool every N segments, 0 = off = per-mesh sort; default the
-    HRT_POOL_SORT env knob) — see _segment.
+    HRT_POOL_SORT env knob) — see _segment. mesh_backend: see _segment.
     """
     wh = width * height
     chunk, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
@@ -398,7 +391,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                           jnp.int32(steps_per_call), width, height,
                           jnp.int32(total_items), max_depth,
                           jnp.int32(samples), jnp.int32(sample_chunk), rr,
-                          pool_sort)
+                          pool_sort, mesh_backend)
         retired = int(jax.device_get(state.retired))
         if progress_cb is not None:
             progress_cb(retired, total_samples)
@@ -415,7 +408,8 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  checkpoint_cb=None,
                  sample_chunk: int = SAMPLE_CHUNK,
                  rr: bool = True,
-                 pool_sort: Optional[int] = None) -> jnp.ndarray:
+                 pool_sort: Optional[int] = None,
+                 mesh_backend: str = "auto") -> jnp.ndarray:
     """Full render -> tonemapped (H, W, 3) float image in [0,1]; same film
     pipeline as integrator/path.py (average -> ACES -> gamma)."""
     state = render_state(scene, camera, width, height, samples, key,
@@ -423,7 +417,7 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                          progress_cb=progress_cb, state=state,
                          checkpoint_cb=checkpoint_cb,
                          sample_chunk=sample_chunk, rr=rr,
-                         pool_sort=pool_sort)
+                         pool_sort=pool_sort, mesh_backend=mesh_backend)
     mean = framebuffer(state, width, height) / jnp.float32(samples)
     img = film_ops.tonemap(mean)
     return img.reshape(height, width, 3)

@@ -1,18 +1,15 @@
-"""Pallas TPU kernels for the hot compute path.
+"""Pallas kernels for the hot compute path.
 
 The reference's hottest loops are the recursive BVH descent
 (bvh.cpp:69-78) and the per-triangle watertight test (triangle.cpp:57-109).
-Their TPU-native form is a single fused kernel: per ray-block ordered
-cluster traversal + dense Moller-Trumbore over VMEM-resident leaf
-triangles (kernels/mesh_traverse.py); meshes whose tables exceed VMEM
-stream their clusters from HBM with double-buffered DMA instead.
+Here they are one fused GPU kernel, compiled through Pallas's Triton
+route: per ray-block ordered cluster traversal + Moller-Trumbore over the
+visited leaves + winner attribute interpolation
+(kernels/mesh_traverse.py).
 """
 from .mesh_traverse import (  # noqa: F401
-    coherence_keys_pallas,
-    mesh_fits_stream,
-    mesh_fits_vmem,
+    kernel_fits,
     pack_bounds,
     pack_mesh_soa,
-    pack_mesh_stream,
     traverse_clusters_pallas,
 )

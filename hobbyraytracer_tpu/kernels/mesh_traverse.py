@@ -1,147 +1,97 @@
-"""Fused BVH-cluster traversal + triangle intersection + attribute
-interpolation as a Pallas kernel.
+"""Fused cluster-BVH mesh find as a Pallas kernel (Triton route).
 
-Replaces the XLA `lax.while_loop` traversal in
-ops/intersect.py:intersect_mesh_clustered for the forward render path. The
-XLA loop is LOCKSTEP: every iteration does a full-wavefront visit, so the
-whole wavefront pays for the worst block's visit count (max over blocks).
-Here the grid iterates ray blocks sequentially on the TPU core and each
-block runs its OWN `while_loop`, terminating as soon as the nearest
-unvisited cluster's entry distance exceeds every ray-in-block's best t
-(blocks whose rays all miss every cluster do ZERO visits) — total cost is
-the SUM of per-block visits, the same early-out economics as the
-reference's per-ray recursive descent (bvh.cpp:69-78) without per-lane
-divergence.
+Replaces the lock-step XLA traversal in
+ops/intersect.py:intersect_mesh_clustered for the forward render path and
+for the find half of the differentiable replay. The XLA loop is LOCKSTEP:
+it builds a dense (rays x clusters) slab-entry matrix in device memory,
+and every `while_loop` trip intersects every ray block until the slowest
+block is done. Here every program owns one small block of rays and runs
+its OWN loop, so the total cost is the SUM of per-block visits — the same
+early-out economics as the reference's per-ray recursive descent
+(bvh.cpp:69-78).
 
-Round-2 profiling on the real chip showed the PREVIOUS design's XLA-side
-preprocessing (a dense (rays x clusters) slab-entry matrix in HBM feeding
-per-block argsorts) cost ~9x the traversal kernel itself (52 ms of a
-58 ms scene intersect at 262k rays). So the kernel now does everything
-on-chip:
+One program (BLOCK rays, a power of two):
 
-- the cluster slab test (AABB::hit, aabb.h:26-39) runs INSIDE the kernel
-  on the (B, K) block-local matrix in VMEM — the full (R, K) matrix never
-  exists anywhere;
-- the near-to-far visit ORDER is argmin-extraction over the block's entry
-  row (visit nearest unvisited cluster, mask it to +inf, repeat while the
-  nearest remaining entry could still beat the block's worst best-t) —
-  exactly the ordered descent of bvh.cpp:69-78, no pre-sort at all;
-- leaf intersection is classic Moller-Trumbore (the reference's watertight
-  variant, triangle.cpp:57-109, is kept on the XLA/differentiable path;
-  the two agree to float rounding, tests/test_kernels.py);
-- the winning triangle's smooth normal/UV are interpolated in-kernel from
-  the MT barycentrics (triangle.cpp:112-128) — round-2 profiling showed
-  XLA gather-based interpolation after the kernel cost 10x the traversal.
+1. builds the block's entry ROW: for every cluster, the nearest slab
+   entry (aabb.h:26-39 semantics, as ops/intersect.py:block_entries)
+   over the block's valid rays. The row is held in registers as a few
+   ROW_CHUNK-wide vectors, filled by a loop over the block's rays — the
+   (B, K) entry matrix never exists;
+2. visits clusters near to far by that row (min-and-match first index,
+   not argmin). A cluster is VISITED only while some ray's OWN entry into
+   it (re-tested from the cluster's box) is below that ray's best t — the
+   per-ray masked visit rule; others are skipped for the cost of B slab
+   tests. The loop ends when the nearest remaining entry cannot beat the
+   block's worst best t;
+3. intersects a visited leaf in LEAF_TILE-wide sub-tiles (Moller-Trumbore;
+   the reference's watertight variant, triangle.cpp:57-109, stays on the
+   XLA/differentiable path — the two agree to float rounding,
+   tests/test_kernels.py), keeping per ray (t, cluster, lane) of the first
+   minimum;
+4. re-gathers the winning triangle once per ray and interpolates its
+   smooth normal and UV from the Moller-Trumbore barycentrics
+   (triangle.cpp:112-128).
 
-A second tiny kernel (`coherence_keys_pallas`) produces the per-ray
-(nearest-entry distance, nearest cluster id) pair that drives the optional
-wavefront coherence sort, again without materializing (R, K).
+All arithmetic is elementwise float32: there are no matrix products, so
+TF32 never applies. Blocks are independent and run in any order.
 
-Layout notes (TPU tiling: f32 tiles are (8 sublanes, 128 lanes)):
-- rays are packed (NB, B, 8): lanes = [ox oy oz dx dy dz valid pad], so a
-  block slice is a natural (B, 8) tile and per-component (B, 1) columns
-  broadcast against (1, L) triangle rows into (B, L) pairwise ops;
-- leaf size L = 128 fills the lane axis exactly;
-- cluster bounds arrive as one (8, K) f32 table: rows [bmin.xyz, bmax.xyz,
-  0, 0] with clusters on the lane axis;
-- outputs pack [t, nx, ny, nz, u, v] into one (NB, B, 8) f32 buffer plus
-  an (NB, B, 1) int32 winning-triangle id.
+Table layout (built once on the host, scene/build.py):
+- tri table (K, 24, L) f32: rows [v0, e1=v1-v0, e2=v2-v0, n0, n1, n2,
+  uv0, uv1, uv2] with the L leaf triangles on the minor axis, so a
+  sub-tile row is one contiguous load;
+- ids (K, L) int32 global triangle ids, -1 for leaf padding;
+- bounds (8, K) f32 rows [bmin.xyz, bmax.xyz, 0, 0].
+Rays enter as (8, R) rows [ox oy oz dx dy dz valid 0] and results leave
+as (8, R) rows [t nx ny nz u v 0 0] plus (R,) int32 triangle ids.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..core.mathx import BIG
 
-import os
-
-# rays per traversal block. Round-3 sweep favored 1024 under the
-# block-worst early-out; per-ray masked visiting (round 5) moves the
-# optimum DOWN — smaller blocks have smaller per-block cluster unions
-# and the masked scheme keeps their early-out exact. Teapot bench
-# sweep (round 5, 100spp): 128 -> 5.98M, 256 -> 6.29M, 512 -> 6.20M,
-# 1024 -> 5.97M rays/s. 2048 blows the VMEM budget.
-BLOCK = int(os.environ.get("HRT_BLOCK", "256"))
-# rays per coherence-key block. NOTE the (TB, K) slab intermediates pad K
-# up to a full 128-lane row, so VMEM cost is ~10 * TB * 128 * 4 B; 8192
-# blows the 16 MB scoped-vmem limit (measured), 2048 fits comfortably.
-KEY_BLOCK = int(os.environ.get("HRT_KEY_BLOCK", "2048"))
+# Rays per program (a power of two). Not yet swept on the H100.
+BLOCK = int(os.environ.get("HRT_BLOCK", "32"))
+# Triangles per leaf sub-tile: the live (BLOCK, LEAF_TILE) f32 temporaries
+# of one Moller-Trumbore pass must stay in registers.
+LEAF_TILE = 32
+# Widest register vector of the block's entry row; wider meshes hold the
+# row as several such chunks.
+ROW_CHUNK = 1024
+# Meshes with more clusters than this (~1M triangles at leaf 128) take the
+# XLA find: the entry row would no longer fit in registers.
+MAX_CLUSTERS = 8 * ROW_CHUNK
+NUM_WARPS = 4
 SOA_ROWS = 24        # v0,e1,e2 (9) + n0,n1,n2 (9) + uv0,uv1,uv2 (6)
-# Streaming-table layout (meshes too big for resident VMEM): rows 0-23 =
-# the SOA_ROWS above, row 24 = triangle ids bitcast to f32, rows 25-31 =
-# zero padding to the full 32-sublane f32 tile so each cluster's (32, L)
-# block DMAs as whole tiles.
-STREAM_ROWS = 32
-# cluster chunk for the streaming kernel's slab-entry pass: the (B, KC)
-# intermediates must fit VMEM next to the MT working set
-STREAM_KC = 256
-# ray-block size for the STREAMING kernel. Large-K meshes want much
-# smaller blocks than the resident kernel's 1024: a visit's cost is per
-# BLOCK, and the set of clusters a block needs is the UNION over its
-# rays — swept on the chip (hires teapot, 105k tris, round 5):
-# 1024 -> 0.60M, 512 -> 0.81M, 256 -> 1.00M, 128 -> 1.09M rays/s.
-STREAM_BLOCK = int(os.environ.get("HRT_STREAM_BLOCK", "128"))
-# Route every mesh through the streaming kernel (see mesh_fits_vmem).
-FORCE_STREAM = os.environ.get("HRT_FORCE_STREAM", "0") != "0"
-# Winner-pick via MXU matmuls instead of VPU one-hot reductions.
-# Default OFF: at HIGHEST (true-f32) matmul precision the MXU pass costs
-# more than the VPU reductions it replaces on this chip (4.97M vs 5.78M
-# rays/s, PERF.md round 4) — the briefly-measured +2% was DEFAULT
-# precision silently truncating normals/UVs to bf16. Kept as a knob for
-# chips where the f32 matmul economics differ.
-MXU_PICK = os.environ.get("HRT_MXU_PICK", "0") != "0"
-# Grid-axis semantics for the traversal kernel ("parallel" lets Mosaic
-# spread ray blocks across TensorCores; flat on 1-core v5e, PERF.md).
-# Read ONCE at import like every other knob (trace-time env reads are
-# invisible to the jit cache).
-DIM_SEM = os.environ.get("HRT_DIM_SEM", "parallel")
-# Total scoped-VMEM budget the kernel may plan against (the hardware
-# limit is 16 MB; leave slack for Mosaic's own staging buffers).
-VMEM_BUDGET_BYTES = 14 * 1024 * 1024
 _INF = float("inf")
+# never-hit padding box: degenerate AT DISTANCE, not inverted — the slab
+# test takes min/max per axis, which turns an inverted box into one that
+# covers all space. A zero-size box gives hi == entry (strict reject), and
+# at 3e37 the products overflow to +-inf, which the comparisons reject too.
+_PAD_BOX = 3e37
 
 
-def mesh_fits_vmem(k_clusters: int, leaf: int) -> bool:
-    """Whether the fused kernel can hold BOTH the resident mesh tables AND
-    its per-block working set at the current BLOCK size. The working set
-    scales with BLOCK: the (B, K) slab-entry matrix plus ~12 (B, L) f32
-    Moller-Trumbore/interpolation temporaries — raising BLOCK 256->1024
-    (round 3) shrank the admissible mesh accordingly; oversized meshes
-    stream leaf blocks from HBM instead (mesh_fits_stream).
-    HRT_FORCE_STREAM=1 routes EVERY mesh through the streaming kernel
-    (A/B experiments: on a 42k-tri mesh the stream kernel measured
-    FASTER than the resident one — round-5 PERF.md)."""
-    if FORCE_STREAM:
-        return False
-    tables = k_clusters * (32 * leaf * 4 + leaf * 4)  # SoA padded 24->32
-    block_ws = BLOCK * k_clusters * 4 + 12 * BLOCK * leaf * 4
-    return tables + block_ws <= VMEM_BUDGET_BYTES
+def kernel_fits(k_clusters: int) -> bool:
+    """Whether the kernel can traverse a mesh of k_clusters clusters."""
+    return k_clusters <= MAX_CLUSTERS
 
 
-def mesh_fits_stream(k_clusters: int, leaf: int) -> bool:
-    """Whether the STREAMING kernel can traverse this mesh: only the
-    cluster bounds (8, K), the per-ray (STREAM_BLOCK, K) entry matrix,
-    the chunked slab working set and a 2-deep (32, L) cluster buffer
-    live in VMEM — the triangle tables stay in HBM and are DMA'd per
-    visited cluster. ~1.5M triangles at leaf 128 / STREAM_BLOCK 128
-    (vs the resident kernel's ~45k); the reference's recursive BVH
-    (bvh.cpp:6-78) is matched in practical capacity."""
-    fixed = (12 * STREAM_BLOCK * leaf * 4             # MT temporaries
-             + 6 * STREAM_BLOCK * STREAM_KC * 4       # slab-chunk temps
-             + 2 * STREAM_ROWS * leaf * 4)            # double buffer
-    k_pad = ((k_clusters + STREAM_KC - 1) // STREAM_KC) * STREAM_KC
-    tables = k_pad * (8 + STREAM_BLOCK + 1) * 4       # bounds + entries
-    return tables + fixed <= VMEM_BUDGET_BYTES
+def row_geometry(k_clusters: int):
+    """(chunk, padded K) of the entry row: one power-of-two chunk for small
+    meshes, ROW_CHUNK-wide chunks for large ones."""
+    chunk = min(ROW_CHUNK, pl.next_power_of_2(max(k_clusters, 1)))
+    return chunk, -(-k_clusters // chunk) * chunk
 
 
 def pack_mesh_soa(tri_verts, tri_normals, tri_uvs):
     """(K,L,3,3) verts / (K,L,3,3) corner normals / (K,L,3,2) corner UVs
-    -> (K, 24, L) SoA with triangles on the minor (lane) axis."""
+    -> (K, 24, L) SoA with the leaf triangles on the minor axis."""
     v0 = tri_verts[:, :, 0, :]
     e1 = tri_verts[:, :, 1, :] - v0
     e2 = tri_verts[:, :, 2, :] - v0
@@ -153,477 +103,207 @@ def pack_mesh_soa(tri_verts, tri_normals, tri_uvs):
     return jnp.swapaxes(soa, 1, 2)                        # (K, 24, L)
 
 
-def pack_mesh_stream(tri_soa, tri_id):
-    """(K, 24, L) resident SoA + (K, L) int32 ids -> the (K, 32, L) f32
-    STREAMING table: the ids ride as a bitcast f32 row (24) so each
-    visited cluster is ONE whole-tile HBM->VMEM DMA instead of two."""
-    k, rows, leaf = tri_soa.shape
-    assert rows == SOA_ROWS, rows
-    id_row = jax.lax.bitcast_convert_type(
-        tri_id.astype(jnp.int32), jnp.float32)[:, None, :]  # (K,1,L)
-    pad = jnp.zeros((k, STREAM_ROWS - SOA_ROWS - 1, leaf), jnp.float32)
-    return jnp.concatenate([tri_soa, id_row, pad], axis=1)
-
-
 def pack_bounds(bmin, bmax):
     """(K,3)/(K,3) cluster bounds -> (8, K) f32 rows [bmin.xyz, bmax.xyz,
-    0, 0] (clusters on the lane axis)."""
+    0, 0]."""
     rows = jnp.concatenate([bmin.T, bmax.T,
                             jnp.zeros((2, bmin.shape[0]), jnp.float32)],
                            axis=0)
     return rows.astype(jnp.float32)
 
 
-def _slab_entries(r, bounds, t_max: float):
-    """Block-local cluster slab test (aabb.h:26-39 semantics as in
-    ops/intersect.py:cluster_entries). r: (B, 8) packed rays, bounds:
-    (8, K). Returns (B, K) entry distance (>=0), +inf where missed or the
-    lane is invalid."""
-    valid = r[:, 6:7] > 0.0
-    lo = None
-    hi = None
+def _slab(o, inv, lo, hi, t_max: float):
+    """Slab entry distance (>= 0), +inf where missed. o/inv/lo/hi: three
+    per-axis values that broadcast against each other."""
+    near = far = None
     for ax in range(3):
-        o_ax = r[:, ax:ax + 1]                            # (B,1)
-        d_ax = r[:, 3 + ax:4 + ax]
-        inv = 1.0 / jnp.where(jnp.abs(d_ax) < 1e-30, 1e-30, d_ax)
-        t0 = (bounds[ax:ax + 1, :] - o_ax) * inv          # (B,K)
-        t1 = (bounds[3 + ax:4 + ax, :] - o_ax) * inv
-        lo_ax = jnp.minimum(t0, t1)
-        hi_ax = jnp.maximum(t0, t1)
-        lo = lo_ax if lo is None else jnp.maximum(lo, lo_ax)
-        hi = hi_ax if hi is None else jnp.minimum(hi, hi_ax)
-    entry = jnp.maximum(lo, 0.0)
-    ok = (hi > entry) & (entry < t_max) & valid
-    return jnp.where(ok, entry, _INF)
+        t0 = (lo[ax] - o[ax]) * inv[ax]
+        t1 = (hi[ax] - o[ax]) * inv[ax]
+        n_ax = jnp.minimum(t0, t1)
+        f_ax = jnp.maximum(t0, t1)
+        near = n_ax if near is None else jnp.maximum(near, n_ax)
+        far = f_ax if far is None else jnp.minimum(far, f_ax)
+    entry = jnp.maximum(near, 0.0)
+    return jnp.where((far > entry) & (entry < t_max), entry, _INF)
 
 
-def _visit_cluster(blk, ids, comps, valid, lane, t_max: float,
-                   need_uv: bool, fb, ib):
-    """Intersect one cluster's (>=24, L) SoA block against the block's
-    rays and fold the winners into the fb/ib scratch accumulators.
-    Shared by the resident and streaming kernels — identical math, so
-    the two agree bit-for-bit on the same visit sequence."""
-    ox, oy, oz, dx, dy, dz = comps               # (B,1) ray components
-    b = ox.shape[0]
-    v0x, v0y, v0z = blk[0:1, :], blk[1:2, :], blk[2:3, :]   # (1,L)
-    e1x, e1y, e1z = blk[3:4, :], blk[4:5, :], blk[5:6, :]
-    e2x, e2y, e2z = blk[6:7, :], blk[7:8, :], blk[8:9, :]
-    # Moller-Trumbore, all ops (B, L)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
+def _safe_inv(d):
+    return 1.0 / jnp.where(jnp.abs(d) < 1e-30, 1e-30, d)
+
+
+def _moller_trumbore(o, d, v0, e1, e2):
+    """(det, u, v, t) of rays o/d against triangles v0/e1/e2 (per-axis
+    lists of broadcastable values)."""
+    px = d[1] * e2[2] - d[2] * e2[1]
+    py = d[2] * e2[0] - d[0] * e2[2]
+    pz = d[0] * e2[1] - d[1] * e2[0]
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
     inv = 1.0 / jnp.where(det == 0.0, 1.0, det)
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
+    tx = o[0] - v0[0]
+    ty = o[1] - v0[1]
+    tz = o[2] - v0[2]
     u = (tx * px + ty * py + tz * pz) * inv
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv
-    good = ((det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-            & (t > 0.0) & (t <= t_max) & (ids >= 0))
-    t = jnp.where(good, t, BIG)
-    t_min = jnp.min(t, axis=1, keepdims=True)             # (B,1)
-    take = (t_min < fb[:, 0:1]) & valid
-    # deterministic winning lane (first minimum): one-hot sum-select
-    win = jnp.argmin(t, axis=1)[:, None]                  # (B,1)
-    hot = (lane == win) & good                            # (B,L)
-
-    def pick(x):                     # (B,L) -> (B,1) value at win lane
-        return jnp.sum(jnp.where(hot, x, 0.0), axis=1, keepdims=True)
-
-    # smooth normal + UV from MT barycentrics (triangle.cpp:112-128);
-    # UV interpolation is STATICALLY skipped when no material in the
-    # scene samples a texture (need_uv=False saves ~2 (B,L) picks and
-    # 10 interp ops per visit)
-    w0 = 1.0 - u - v
-    if MXU_PICK:
-        # pack interpolation + winner-pick into 3 small matmuls:
-        # out[b,a] = sum_l hot*(w0*A0[a]+u*A1[a]+v*A2[a]). NOTE:
-        # measured SLOWER than the VPU reductions at true-f32
-        # precision on v5e (see MXU_PICK above) — off by default
-        if need_uv:
-            a0 = jnp.concatenate([blk[9:12, :], blk[18:20, :]], 0)
-            a1 = jnp.concatenate([blk[12:15, :], blk[20:22, :]], 0)
-            a2 = jnp.concatenate([blk[15:18, :], blk[22:24, :]], 0)
-        else:
-            a0, a1, a2 = blk[9:12, :], blk[12:15, :], blk[15:18, :]
-
-        def mm(w_bl, a_rl):                  # (B,L)x(A,L) -> (B,A)
-            # HIGHEST precision: the default truncates f32 MXU
-            # inputs to bf16 (~8 mantissa bits lost on normals/UVs)
-            return jax.lax.dot_general(
-                w_bl, a_rl, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)
-
-        # mask by SELECT, not multiply: a degenerate sliver in a
-        # NON-winning lane can have inf/NaN barycentrics, and
-        # 0 * inf = NaN would ride the contraction into the winning
-        # ray's attributes
-        z = jnp.float32(0.0)
-        attr = (mm(jnp.where(hot, w0, z), a0)
-                + mm(jnp.where(hot, u, z), a1)
-                + mm(jnp.where(hot, v, z), a2))   # (B, 5|3)
-        pad_w = 2 if need_uv else 4
-        cand = jnp.concatenate(
-            [t_min, attr, jnp.zeros((b, pad_w), jnp.float32)], axis=1)
-    else:
-        nx = (w0 * blk[9:10, :] + u * blk[12:13, :]
-              + v * blk[15:16, :])
-        ny = (w0 * blk[10:11, :] + u * blk[13:14, :]
-              + v * blk[16:17, :])
-        nz = (w0 * blk[11:12, :] + u * blk[14:15, :]
-              + v * blk[17:18, :])
-        if need_uv:
-            uu = (w0 * blk[18:19, :] + u * blk[20:21, :]
-                  + v * blk[22:23, :])
-            vv = (w0 * blk[19:20, :] + u * blk[21:22, :]
-                  + v * blk[23:24, :])
-            uv_cols = [pick(uu), pick(vv)]
-        else:
-            uv_cols = [jnp.zeros((b, 2), jnp.float32)]
-        cand = jnp.concatenate(
-            [t_min, pick(nx), pick(ny), pick(nz)] + uv_cols
-            + [jnp.zeros((b, 2), jnp.float32)], axis=1)  # (B,8)
-    id_win = jnp.sum(jnp.where(hot, ids, 0), axis=1,
-                     keepdims=True)                       # (B,1)
-    fb[:] = jnp.where(take, cand, fb[:])
-    ib[:] = jnp.where(take, id_win, ib[:])
+    qx = ty * e1[2] - tz * e1[1]
+    qy = tz * e1[0] - tx * e1[2]
+    qz = tx * e1[1] - ty * e1[0]
+    v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv
+    t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv
+    return det, u, v, t
 
 
-def _kernel(rays_ref, bounds_ref, tri_ref, id_ref,
-            out_f, out_i, fb, ib, k_clusters: int, t_max: float,
-            need_uv: bool = True):
-    r = rays_ref[0]                      # (B, 8)
-    comps = (r[:, 0:1], r[:, 1:2], r[:, 2:3],
-             r[:, 3:4], r[:, 4:5], r[:, 5:6])
-    valid = r[:, 6:7] > 0.0
-    b = r.shape[0]
+def _kernel(rays_ref, bounds_ref, tri_ref, id_ref, out_f_ref, out_i_ref, *,
+            k_clusters: int, chunk: int, n_chunks: int, leaf: int,
+            block: int, t_max: float, need_uv: bool):
+    base = pl.program_id(0) * block
+    rows = pl.ds(base, block)
+    o = [rays_ref[a, rows] for a in range(3)]               # (B,) each
+    d = [rays_ref[3 + a, rows] for a in range(3)]
+    inv = [_safe_inv(x) for x in d]
+    valid = rays_ref[6, rows] > 0.0
 
-    ch = jax.lax.broadcasted_iota(jnp.int32, (b, 8), 1)
-    fb[:] = jnp.where(ch == 0, BIG, 0.0)  # channel 0 = t, rest zero
-    ib[:] = jnp.full(ib.shape, -1, jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, tri_ref.shape[2]), 1)
-    klane = jax.lax.broadcasted_iota(jnp.int32, (1, k_clusters), 1)
+    # 1. the block's entry row, one register chunk at a time
+    def row_chunk(c):
+        cols = pl.ds(c * chunk, chunk)
+        lo = [bounds_ref[a, cols] for a in range(3)]          # (chunk,)
+        hi = [bounds_ref[3 + a, cols] for a in range(3)]
 
-    entry = _slab_entries(r, bounds_ref[:], t_max)        # (B,K)
+        def per_ray(j, row):
+            r = base + j
+            oj = [rays_ref[a, r] for a in range(3)]
+            ij = [_safe_inv(rays_ref[3 + a, r]) for a in range(3)]
+            e = _slab(oj, ij, lo, hi, t_max)
+            return jnp.minimum(row, jnp.where(rays_ref[6, r] > 0.0, e, _INF))
 
-    # Per-ray masked visiting (round 5; replaces the round-2 block-worst
-    # early-out): cluster k remains NEEDED while SOME ray's entry into
-    # it is closer than that ray's OWN current best t. Under the old
-    # rule a single ray that misses every triangle kept its whole block
-    # visiting until the ordered entries ran out — O(K) visits per
-    # block on finely-clustered meshes. Now a settled ray stops
-    # contributing its corridor immediately, and a missing ray forces
-    # exactly the clusters its line genuinely enters — the per-ray
-    # minimum visit set this traversal can prove. The (B, K) entry
-    # matrix was already materialized for the slab test; the extra
-    # per-visit cost is one (B, K) where+min pass.
-    def rem_row(e):
-        need = e < fb[:, 0:1]                             # (B,K)
-        return jnp.min(jnp.where(need, e, _INF), axis=0,
-                       keepdims=True)                     # (1,K)
+        return jax.lax.fori_loop(0, block, per_ray,
+                                 jnp.full((chunk,), _INF, jnp.float32))
+
+    row0 = tuple(row_chunk(c) for c in range(n_chunks))
+    iotas = [jax.lax.broadcasted_iota(jnp.int32, (chunk,), 0) + c * chunk
+             for c in range(n_chunks)]
 
     def pick(row):
-        e = jnp.min(row)
-        k = jnp.min(jnp.where(row == e, klane, k_clusters))
+        e = functools.reduce(jnp.minimum, [jnp.min(r) for r in row])
+        k = functools.reduce(jnp.minimum, [
+            jnp.min(jnp.where(r == e, i, n_chunks * chunk))
+            for r, i in zip(row, iotas)])
         return e, k
 
-    e0, k0 = pick(rem_row(entry))
+    def worst(best_t):
+        return jnp.max(jnp.where(valid, best_t, -_INF))
 
-    def cond(c):
-        _, _, e_cur = c
-        return e_cur < _INF
+    lane = jax.lax.broadcasted_iota(jnp.int32, (block, LEAF_TILE), 1)
 
-    def body(c):
-        e_mat, k, _ = c
-        blk = tri_ref[k]                 # (24, L) VMEM read
-        ids = id_ref[pl.ds(k, 1), :]     # (1, L) int32
-        _visit_cluster(blk, ids, comps, valid, lane, t_max, need_uv,
-                       fb, ib)
-        e_mat = jnp.where(klane == k, _INF, e_mat)        # mark visited
-        e_nxt, k_nxt = pick(rem_row(e_mat))               # post-visit: exact
-        return e_mat, k_nxt, e_nxt
+    def visit(k, best):
+        best_t, best_k, best_l = best
+        for s in range(leaf // LEAF_TILE):
+            cols = pl.ds(s * LEAF_TILE, LEAF_TILE)
+            tri = [tri_ref[k, r, cols][None, :] for r in range(9)]
+            ids = id_ref[k, cols][None, :]
+            det, u, v, t = _moller_trumbore(
+                [x[:, None] for x in o], [x[:, None] for x in d],
+                tri[0:3], tri[3:6], tri[6:9])
+            good = ((det != 0.0) & (u >= 0.0) & (v >= 0.0)
+                    & (u + v <= 1.0) & (t > 0.0) & (t <= t_max)
+                    & (ids >= 0))
+            t = jnp.where(good, t, BIG)
+            t_min = jnp.min(t, axis=1)                        # (B,)
+            first = jnp.min(jnp.where(t == t_min[:, None], lane, leaf),
+                            axis=1)
+            take = (t_min < best_t) & valid
+            best_t = jnp.where(take, t_min, best_t)
+            best_k = jnp.where(take, k, best_k)
+            best_l = jnp.where(take, first + s * LEAF_TILE, best_l)
+        return best_t, best_k, best_l
 
-    jax.lax.while_loop(cond, body, (entry, k0, e0))
-    out_f[0] = fb[:]
-    out_i[0] = ib[:]
+    def cond(carry):
+        _, best_t, _, _, e, _ = carry
+        return e < worst(best_t)
 
+    def body(carry):
+        row, best_t, best_k, best_l, _, k = carry
+        kc = jnp.minimum(k, k_clusters - 1)
+        lo = [bounds_ref[a, kc] for a in range(3)]
+        hi = [bounds_ref[3 + a, kc] for a in range(3)]
+        need = (_slab(o, inv, lo, hi, t_max) < best_t) & valid
+        best_t, best_k, best_l = jax.lax.cond(
+            jnp.max(need.astype(jnp.int32)) > 0,
+            functools.partial(visit, kc), lambda b: b,
+            (best_t, best_k, best_l))
+        row = tuple(jnp.where(i == k, _INF, r) for r, i in zip(row, iotas))
+        e, k = pick(row)
+        return row, best_t, best_k, best_l, e, k
 
-def _kernel_stream(rays_ref, bounds_ref, tri_ref,
-                   out_f, out_i, fb, ib, buf, sem, entry_mat,
-                   k_clusters: int, t_max: float, need_uv: bool = True):
-    """Streaming variant of _kernel for meshes whose tables exceed VMEM:
-    the (K, 32, L) triangle table stays in HBM (tri_ref: memory-space
-    ANY); each visited cluster's (32, L) block is DMA'd into a 2-deep
-    VMEM buffer. While cluster k is being intersected, the DMA for the
-    next needed cluster is already in flight (classic double-buffer) so
-    the HBM latency hides behind the Moller-Trumbore visit.
+    e0, k0 = pick(row0)
+    init = (row0, jnp.full((block,), BIG, jnp.float32),
+            jnp.zeros((block,), jnp.int32), jnp.zeros((block,), jnp.int32),
+            e0, k0)
+    _, best_t, best_k, best_l, _, _ = jax.lax.while_loop(cond, body, init)
 
-    Visit policy is the same per-ray masked set as _kernel (cluster k
-    is needed while SOME ray's entry beats that ray's own best t), with
-    one pipelining twist: the next cluster is picked BEFORE the current
-    visit's fb update lands (the DMA must start early to overlap), so
-    each visit may be one update stale — at most a handful of extra
-    16 KB copies per block, never a missed cluster (the needed set only
-    shrinks as t improves). The slab-entry pass fills the (B, K) entry
-    matrix in STREAM_KC chunks so its temporaries stay bounded."""
-    r = rays_ref[0]                      # (B, 8)
-    comps = (r[:, 0:1], r[:, 1:2], r[:, 2:3],
-             r[:, 3:4], r[:, 4:5], r[:, 5:6])
-    valid = r[:, 6:7] > 0.0
-    b = r.shape[0]
-    k_pad = entry_mat.shape[1]
+    # 4. re-gather the winner once per ray; interpolate its attributes
+    hit = best_t < BIG
+    kk = jnp.where(hit, best_k, 0)
+    ll = jnp.where(hit, best_l, 0)
+    g = [tri_ref[kk, r, ll] for r in range(9 + 9 + (6 if need_uv else 0))]
+    _, u, v, _ = _moller_trumbore(o, d, g[0:3], g[3:6], g[6:9])
+    w0 = 1.0 - u - v
 
-    ch = jax.lax.broadcasted_iota(jnp.int32, (b, 8), 1)
-    fb[:] = jnp.where(ch == 0, BIG, 0.0)
-    ib[:] = jnp.full(ib.shape, -1, jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, tri_ref.shape[2]), 1)
-    klane = jax.lax.broadcasted_iota(jnp.int32, (1, k_pad), 1)
+    def interp(r0):       # corner rows r0, r0 + n, r0 + 2n of one attribute
+        n = 3 if r0 < 18 else 2
+        return w0 * g[r0] + u * g[r0 + n] + v * g[r0 + 2 * n]
 
-    # chunked slab entries -> (B, k_pad) matrix (padded clusters carry
-    # never-hit boxes from the wrapper -> +inf entries)
-    def slab_chunk(c, _):
-        bb = bounds_ref[:, pl.ds(c * STREAM_KC, STREAM_KC)]
-        entry_mat[:, pl.ds(c * STREAM_KC, STREAM_KC)] = _slab_entries(
-            r, bb, t_max)
-        return 0
-    jax.lax.fori_loop(0, k_pad // STREAM_KC, slab_chunk, 0)
-
-    def start_dma(k, slot):
-        # clamp: belt-and-suspenders against any pad-cluster leak — a
-        # redundant visit of the last real cluster is harmless (the
-        # take-if-strictly-better fold is idempotent), an out-of-bounds
-        # HBM DMA is a hardware fault
-        k = jnp.minimum(k, k_clusters - 1)
-        return pltpu.make_async_copy(tri_ref.at[k], buf.at[slot],
-                                     sem.at[slot])
-
-    def pick(visited):
-        # visited is a (1, k_pad) f32 row of 0 / +inf carried as a VALUE
-        # (Mosaic cannot store to a dynamic unaligned lane column of the
-        # VMEM matrix, and i1 vector carries fail layout legalization);
-        # entries are >= 0 so maximum() folds the mask in for free
-        e = entry_mat[:]                               # (B, k_pad)
-        rem = jnp.min(jnp.where(e < fb[:, 0:1], e, _INF), axis=0,
-                      keepdims=True)                   # (1, k_pad)
-        rem = jnp.maximum(rem, visited)
-        e_min = jnp.min(rem)
-        k = jnp.min(jnp.where(rem == e_min, klane, k_pad))
-        return e_min, k
-
-    visited0 = jnp.zeros((1, k_pad), jnp.float32)
-    e0, k0 = pick(visited0)
-
-    @pl.when(e0 < _INF)
-    def _():
-        start_dma(k0, jnp.int32(0)).start()
-
-    def cond(c):
-        _, _, e_cur, _ = c
-        return e_cur < _INF
-
-    def body(c):
-        visited, k_cur, _, slot = c
-        visited = jnp.where(klane == k_cur, _INF, visited)
-        e_nxt, k_nxt = pick(visited)  # pre-visit state: one update stale
-
-        @pl.when(e_nxt < _INF)        # prefetch overlaps the visit below
-        def _():
-            start_dma(k_nxt, 1 - slot).start()
-
-        start_dma(k_cur, slot).wait()
-        blk = buf[pl.ds(slot, 1)][0]                  # (32, L)
-        ids = jax.lax.bitcast_convert_type(blk[24:25, :], jnp.int32)
-        _visit_cluster(blk, ids, comps, valid, lane, t_max, need_uv,
-                       fb, ib)
-        return visited, k_nxt, e_nxt, 1 - slot
-
-    jax.lax.while_loop(cond, body, (visited0, k0, e0, jnp.int32(0)))
-    # no drain needed: an iteration only starts a DMA for the cluster
-    # the NEXT iteration is guaranteed to wait on (cond uses the same
-    # e_nxt that gated the start)
-
-    out_f[0] = fb[:]
-    out_i[0] = ib[:]
+    zero = jnp.zeros((block,), jnp.float32)
+    cols = [jnp.where(hit, best_t, BIG)]
+    cols += [jnp.where(hit, interp(9 + a), 0.0) for a in range(3)]
+    if need_uv:
+        cols += [jnp.where(hit, interp(18 + a), 0.0) for a in range(2)]
+    else:
+        cols += [zero, zero]
+    for c, x in enumerate(cols + [zero, zero]):
+        out_f_ref[c, rows] = x
+    out_i_ref[rows] = jnp.where(hit, id_ref[kk, ll], -1)
 
 
 @functools.partial(jax.jit, static_argnames=("t_max", "interpret",
-                                             "need_uv"))
+                                             "need_uv", "block"))
 def traverse_clusters_pallas(rays8, bounds8, tri_soa, tri_id,
                              t_max: float = float(BIG),
                              interpret: bool = False,
-                             need_uv: bool = True):
-    """rays8: (NB, B, 8) packed rays; bounds8: (8, K) cluster bounds
-    (pack_bounds); tri_soa: (K, 24, L) f32 (pack_mesh_soa) for the
-    VMEM-resident kernel, or (K, 32, L) (pack_mesh_stream, ids embedded)
-    for the HBM-streaming kernel — the row count selects the variant.
-    tri_id: (K, L) int32 (ignored by the streaming variant). Returns
-    (out (NB, B, 8) f32 = [t nx ny nz u v 0 0], tri_id_best (NB, B)
-    int32)."""
-    nb, b, _ = rays8.shape
+                             need_uv: bool = True,
+                             block: int = BLOCK):
+    """rays8: (8, R) ray rows, R a multiple of `block`; bounds8: (8, K)
+    (pack_bounds); tri_soa: (K, 24, L) (pack_mesh_soa); tri_id: (K, L)
+    int32. Returns (out (8, R) f32 rows [t nx ny nz u v 0 0], triangle id
+    (R,) int32, -1 where nothing was hit)."""
+    n_rays = rays8.shape[1]
     k_clusters, rows, leaf = tri_soa.shape
-    assert bounds8.shape == (8, k_clusters), bounds8.shape
-    if rows == STREAM_ROWS:
-        return _traverse_stream(rays8, bounds8, tri_soa,
-                                t_max=float(t_max), interpret=interpret,
-                                need_uv=need_uv)
-    assert rows == SOA_ROWS, rows
-    kern = functools.partial(_kernel, k_clusters=k_clusters,
-                             t_max=float(t_max), need_uv=need_uv)
-    # Ray blocks are independent: declare the grid axis parallel so
-    # Mosaic may spread blocks over however many TensorCores the chip
-    # has. Measured on the bench chip (TPU v5e, ONE TensorCore): no
-    # change vs arbitrary (PERF.md round 4) — kept because it is the
-    # correct semantic declaration and multi-core chips (v4/v5p) get
-    # the split for free. HRT_DIM_SEM overrides for experiments.
-    params = (pltpu.CompilerParams(dimension_semantics=(DIM_SEM,))
-              if DIM_SEM else None)
-    out_f, out_i = pl.pallas_call(
-        kern,
-        grid=(nb,),
-        compiler_params=params,
-        in_specs=[
-            pl.BlockSpec((1, b, 8), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, k_clusters), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k_clusters, SOA_ROWS, leaf), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k_clusters, leaf), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, b, 8), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, b, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, b, 8), jnp.float32),
-            jax.ShapeDtypeStruct((nb, b, 1), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((b, 8), jnp.float32),
-            pltpu.VMEM((b, 1), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays8, bounds8, tri_soa, tri_id)
-    return out_f, out_i[..., 0]
-
-
-def _traverse_stream(rays8, bounds8, tri_soa,
-                     t_max: float, interpret: bool, need_uv: bool):
-    """HBM-streaming traversal (see _kernel_stream). tri_soa: (K, 32, L)
-    from pack_mesh_stream, kept in memory-space ANY (HBM); bounds are
-    padded to a STREAM_KC multiple with never-hit boxes so the chunked
-    slab pass divides evenly (padded clusters get +inf entries and are
-    never visited, hence never DMA'd)."""
-    nb, b, _ = rays8.shape
-    k_clusters, rows, leaf = tri_soa.shape
-    assert rows == STREAM_ROWS, rows
-    k_pad = ((k_clusters + STREAM_KC - 1) // STREAM_KC) * STREAM_KC
+    if rows != SOA_ROWS or bounds8.shape != (8, k_clusters):
+        raise ValueError(f"tables {tri_soa.shape} / {bounds8.shape} do not "
+                         "match the (K, 24, L) / (8, K) kernel layout")
+    if n_rays % block or leaf % LEAF_TILE or block & (block - 1):
+        raise ValueError(f"{n_rays} rays, leaf {leaf}, block {block}: rays "
+                         "must fill whole power-of-two blocks and leaves "
+                         f"whole {LEAF_TILE}-triangle tiles")
+    if not kernel_fits(k_clusters):
+        raise ValueError(f"{k_clusters} clusters exceed MAX_CLUSTERS")
+    chunk, k_pad = row_geometry(k_clusters)
     if k_pad != k_clusters:
-        # NEVER-HIT pad boxes must be DEGENERATE-AT-DISTANCE (bmin ==
-        # bmax == 3e37), not inverted (bmin > bmax): the slab test takes
-        # min/max per axis, which NEUTRALIZES inversion — an inverted
-        # box behaves like one covering all space, giving every padded
-        # cluster entry 0 and an out-of-bounds cluster DMA (a real
-        # TPU fault; interpret mode silently clamps). A zero-size box
-        # yields hi == entry -> strict reject, and at 3e37 any
-        # |inv| > ~10 overflows the products to +/-inf, which the
-        # comparisons also reject (no NaNs: no 0 * inf terms).
         pad = jnp.concatenate(
-            [jnp.full((6, k_pad - k_clusters), 3e37, jnp.float32),
+            [jnp.full((6, k_pad - k_clusters), _PAD_BOX, jnp.float32),
              jnp.zeros((2, k_pad - k_clusters), jnp.float32)], axis=0)
-        bounds_p = jnp.concatenate([bounds8, pad], axis=1)
-    else:
-        bounds_p = bounds8
-    kern = functools.partial(_kernel_stream, k_clusters=k_clusters,
-                             t_max=float(t_max), need_uv=need_uv)
-    params = (pltpu.CompilerParams(dimension_semantics=(DIM_SEM,))
-              if DIM_SEM else None)
+        bounds8 = jnp.concatenate([bounds8, pad], axis=1)
+    kern = functools.partial(
+        _kernel, k_clusters=k_clusters, chunk=chunk,
+        n_chunks=k_pad // chunk, leaf=leaf, block=block,
+        t_max=float(t_max), need_uv=need_uv)
     out_f, out_i = pl.pallas_call(
         kern,
-        grid=(nb,),
-        compiler_params=params,
-        in_specs=[
-            pl.BlockSpec((1, b, 8), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, k_pad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),    # triangle table: HBM
-        ],
-        out_specs=[
-            pl.BlockSpec((1, b, 8), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, b, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, b, 8), jnp.float32),
-            jax.ShapeDtypeStruct((nb, b, 1), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((b, 8), jnp.float32),
-            pltpu.VMEM((b, 1), jnp.int32),
-            pltpu.VMEM((2, STREAM_ROWS, leaf), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.VMEM((b, k_pad), jnp.float32),
-        ],
+        grid=(n_rays // block,),
+        out_shape=[jax.ShapeDtypeStruct((8, n_rays), jnp.float32),
+                   jax.ShapeDtypeStruct((n_rays,), jnp.int32)],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=interpret,
-    )(rays8, bounds_p, tri_soa)
-    return out_f, out_i[..., 0]
-
-
-def _key_kernel(rays_ref, bounds_ref, out_e, out_k, t_max: float):
-    r = rays_ref[0]                                        # (TB, 8)
-    entry = _slab_entries(r, bounds_ref[:], t_max)         # (TB, K)
-    k = entry.shape[1]
-    klane = jax.lax.broadcasted_iota(jnp.int32, entry.shape, 1)
-    e_min = jnp.min(entry, axis=1, keepdims=True)          # (TB, 1)
-    # first-minimum index via min+match (Mosaic rejects argmin over f32
-    # vectors: unresolved f32->i32 materialization)
-    first = jnp.min(jnp.where(entry == e_min, klane, k), axis=1)
-    out_e[0, 0] = e_min[:, 0]
-    out_k[0, 0] = jnp.where(jnp.isfinite(e_min[:, 0]), first, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("t_max", "interpret"))
-def coherence_keys_pallas(rays8, bounds8, t_max: float = float(BIG),
-                          interpret: bool = False):
-    """Per-ray (nearest cluster entry distance, nearest cluster id) for the
-    wavefront coherence sort. rays8: (NT, TB, 8); bounds8: (8, K).
-    Returns (e_min (NT, 1, TB) f32 [+inf = misses every cluster],
-    first (NT, 1, TB) int32)."""
-    nt, tb, _ = rays8.shape
-    k_clusters = bounds8.shape[1]
-    kern = functools.partial(_key_kernel, t_max=float(t_max))
-    return pl.pallas_call(
-        kern,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((1, tb, 8), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, k_clusters), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            # unit sublane axis: a (1, TB) block fails the TPU tiling
-            # rule (second-to-last dim must be a multiple of 8 or equal
-            # to the array's), a (1, 1, TB) block satisfies it exactly
-            pl.BlockSpec((1, 1, tb), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tb), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nt, 1, tb), jnp.float32),
-            jax.ShapeDtypeStruct((nt, 1, tb), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays8, bounds8)
+        name="mesh_find",
+    )(rays8, bounds8, tri_soa, tri_id)
+    return out_f, out_i

@@ -1,4 +1,4 @@
-// Native loaders/builders for the TPU path tracer host side.
+// Native loaders/builders for the path tracer's host side.
 //
 // The reference does its host-side heavy lifting in native code: assimp
 // mesh import (mesh.cpp:53-120) and the recursive BVH build with parallel

@@ -9,15 +9,14 @@ generation as a pure batched function; lens sampling is an opt-in flag
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 
-from ..core import rng
+from ..core import rng, struct
 from ..core.types import Rays
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Camera:
     origin: jnp.ndarray            # (3,)
     lower_left_corner: jnp.ndarray # (3,)
@@ -27,7 +26,7 @@ class Camera:
     v: jnp.ndarray                 # (3,) basis up
     w: jnp.ndarray                 # (3,) basis back
     lens_radius: jnp.ndarray       # () aperture/2 (camera.h:29)
-    use_lens: bool = flax.struct.field(pytree_node=False, default=False)
+    use_lens: bool = struct.field(pytree_node=False, default=False)
 
 
 def make_camera(look_from, look_at, up, vfov_deg, aspect_ratio,

@@ -1,7 +1,7 @@
 """Film: accumulation, tonemap, quantization (reference: film.h/film.cpp).
 
 The reference keeps a uint8 framebuffer and tonemaps per pixel under a mutex
-(film.cpp:18-46, main.cpp:126-131). TPU-native: an fp32 HBM accumulator per
+(film.cpp:18-46, main.cpp:126-131). Here: an fp32 device accumulator per
 device tile, with NaN-scrub + Narkowicz ACES + gamma as one vectorized,
 differentiable op; quantize+encode happen on host at output time.
 """

@@ -5,12 +5,12 @@ Replaces the reference's per-ray virtual `Hittable::hit` dispatch
 whole ray wavefront against a whole primitive table, in two phases:
 
   1. find: compute only (t, prim_index) per ray with a chunked running-min
-     scan (bounded memory, maps to VPU lanes with zero divergence);
+     scan (bounded memory, elementwise with zero divergence);
   2. attrib: recompute the full hit record (p, normal, uv) once per ray for
      the winning primitive via gathers.
 
-This is the TPU-native answer to the reference's linear closest-hit scan
-(hittableList.cpp:4-21): dense math instead of branchy tree walks.
+This is the data-parallel answer to the reference's linear closest-hit
+scan (hittableList.cpp:4-21): dense math instead of branchy tree walks.
 """
 from __future__ import annotations
 
@@ -29,39 +29,27 @@ DEFAULT_CHUNK = 128
 # Knobs read ONCE at import: the jit cache is not keyed on env vars, so
 # a trace-time read would silently ignore mid-process flips after the
 # first trace — the hidden dependency class that broke round 3.
-# HRT_KEY_MODE: "auto" (default: "cheap" below K=256 clusters,
-# "corridor" at or above) | "cheap" | "corridor" | "pallas" — see
-# coherence_key / cheap_key_from_box.
+# HRT_KEY_MODE: "auto" (default: "cheap" below CORRIDOR_MIN_K clusters,
+# "corridor" at or above) | "cheap" | "corridor" — see coherence_key /
+# cheap_key_from_box.
 KEY_MODE = os.environ.get("HRT_KEY_MODE", "auto")
-if KEY_MODE not in ("auto", "cheap", "corridor", "pallas"):
+if KEY_MODE not in ("auto", "cheap", "corridor"):
     raise ValueError(f"HRT_KEY_MODE={KEY_MODE!r}: expected 'auto', "
-                     "'cheap', 'corridor' or 'pallas'")
+                     "'cheap' or 'corridor'")
 # cluster count at which "auto" switches the key from octant|entry to
-# entry|exit (round-5 teapot/hires benches: cheap wins at K=64 — 7.58M
-# vs corridor's 7.03M — corridor wins at K=1024 — 2.46M vs 2.14M; the
-# crossover sits between, untested in the middle for lack of a scene)
+# entry|exit (not yet swept on the H100)
 CORRIDOR_MIN_K = int(os.environ.get("HRT_CORRIDOR_MIN_K", "256"))
 # HRT_NO_COHSORT=1: skip the per-mesh coherence sort entirely.
 NO_COHSORT = bool(os.environ.get("HRT_NO_COHSORT"))
 # HRT_UNSORT_MODE: how the per-mesh coherence sort is undone after the
 # traversal kernel — "argsort" (default: inverse permutation via a
-# second argsort, then gathers) | "scatter" (.at[perm].set on the two
-# outputs; the round-3 default). Round-5 teapot bench: argsort 7.58M vs
-# scatter 6.42M rays/s (+18% — the (P,8)+(P,) scatters were the single
-# most expensive slice of the cohsort pipeline; a second argsort plus
-# two gathers is cheaper on this chip). Read ONCE at import (trace-time
-# env reads are invisible to the jit cache). Both modes covered by
-# tests/test_kernel_variants.py.
+# second argsort, then gathers) | "scatter" (.at[perm].set on the
+# outputs). Read ONCE at import (trace-time env reads are invisible to
+# the jit cache). Both modes covered by tests/test_kernel_variants.py.
 UNSORT_MODE = os.environ.get("HRT_UNSORT_MODE", "argsort")
 if UNSORT_MODE not in ("scatter", "argsort"):
     raise ValueError(f"HRT_UNSORT_MODE={UNSORT_MODE!r}: expected "
                      "'scatter' or 'argsort'")
-# HRT_SPHERE_MXU=1: route the dense sphere scan's dot products through
-# the MXU (sphere_t_mxu) — measured slower on v5e, see intersect_spheres.
-SPHERE_MXU = os.environ.get("HRT_SPHERE_MXU", "0") != "0"
-# HRT_SPHERE_KERNEL=1: clustered Pallas sphere find — measured slower
-# than the dense scan at bench scale (see scene/ir.py routing comment).
-SPHERE_KERNEL = os.environ.get("HRT_SPHERE_KERNEL", "0") != "0"
 
 
 def _pad(x, n_padded: int, fill):
@@ -106,9 +94,8 @@ def sphere_t(rays: Rays, center, radius, t_min, t_max):
     two-root window test (sphere.cpp:20-49). center: (S,3), radius: (S,).
     Returns (R, S) t values, BIG where miss.
     """
-    # component-scalarized: every intermediate is (R,S) or (R,1)/(1,S) —
-    # a (R,S,3) formulation pads the size-3 minor axis to a full 128-lane
-    # row on TPU (~43x wasted VPU work and HBM traffic)
+    # component-scalarized: every intermediate is (R,S) or (R,1)/(1,S),
+    # never a (R,S,3) tensor with a size-3 minor axis
     ox, oy, oz = (rays.o[:, i, None] for i in range(3))   # (R,1)
     dx, dy, dz = (rays.d[:, i, None] for i in range(3))
     cx, cy, cz = (center[None, :, i] for i in range(3))   # (1,S)
@@ -147,10 +134,9 @@ def _sphere_attribs(rays: Rays, center, radius, mat_id, t, idx) -> Hits:
     winner's params and recompute p/normal/uv (sphere.cpp:50-57).
 
     Large sphere pools pack (center, radius, mat_id) into ONE row
-    gather — separate per-lane (N,) gathers cost ~1.8 ms each at a
-    196k pool on a 486-row table while row width is free (the same
-    round-5 finding as shade's _gather_params); small pools keep the
-    per-field gathers XLA lowers to selects."""
+    gather instead of three per-lane (N,) gathers (as shade's
+    _gather_params does); small pools keep the per-field gathers XLA
+    lowers to selects."""
     n = center.shape[0]
     hit = (t < BIG) & (idx >= 0)
     safe = jnp.minimum(jnp.maximum(idx, 0), n - 1)
@@ -176,35 +162,6 @@ def _sphere_attribs(rays: Rays, center, radius, mat_id, t, idx) -> Hits:
                 mat_id=jnp.where(hit, m, -1))
 
 
-def sphere_t_mxu(rays: Rays, center, r2_minus, od, oo, a, inv_a,
-                 t_min, t_max):
-    """sphere_t with the rank-3 dot products on the MXU: oc.d = o.d -
-    c.d and |oc|^2 = |o|^2 - 2 c.o + |c|^2, where c.d and c.o are
-    (R,3)x(3,S) matmuls — removing ~14 of the ~32 VPU ops per
-    (ray, sphere) pair the expanded form pays. Precision HIGHEST: the
-    default truncates f32 MXU inputs to bf16 (~0.4% relative — coarser
-    than the hit window for distant small spheres).
-
-    center: (S,3); r2_minus: (S,) = |c|^2 - r^2; od/oo/a/inv_a: (R,)
-    precomputed per-ray quantities. Returns (R,S) candidate t."""
-    mm = lambda x, y: jax.lax.dot_general(
-        x, y, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)
-    cd = mm(rays.d, center)                      # (R,S) c.d
-    co = mm(rays.o, center)                      # (R,S) c.o
-    half_b = od[:, None] - cd
-    cc = (oo[:, None] - 2.0 * co) + r2_minus[None, :]
-    disc = half_b * half_b - a[:, None] * cc
-    sqrtd = jnp.sqrt(jnp.where(disc > 0.0, disc, 1.0))
-    r1 = (-half_b - sqrtd) * inv_a[:, None]
-    r2 = (-half_b + sqrtd) * inv_a[:, None]
-    in1 = (r1 >= t_min) & (r1 <= t_max)
-    in2 = (r2 >= t_min) & (r2 <= t_max)
-    root = jnp.where(in1, r1, jnp.where(in2, r2, BIG))
-    return jnp.where(disc > 0.0, root, BIG)
-
-
 def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
                       chunk: int = DEFAULT_CHUNK) -> Hits:
     n_rays = rays.o.shape[0]
@@ -215,89 +172,13 @@ def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
     np_ = ((n + chunk - 1) // chunk) * chunk
     center_p = _pad(center, np_, 1e30)  # far away: disc < 0, never hits
     radius_p = _pad(radius, np_, 0.0)
-    if SPHERE_MXU:
-        # measured SLOWER on the chip (balls bench 3.80M vs 4.39M
-        # rays/s) — the HIGHEST-precision matmuls cost more than the
-        # VPU ops they displace at these sizes; kept as a knob for
-        # chips with different f32-matmul economics (PERF.md round 5)
-        r2_minus = (jnp.sum(center_p * center_p, axis=1)
-                    - radius_p * radius_p)
-        od = jnp.sum(rays.o * rays.d, axis=1)
-        oo = jnp.sum(rays.o * rays.o, axis=1)
-        a = jnp.sum(rays.d * rays.d, axis=1)
-        inv_a = 1.0 / a
 
-        def per_chunk(start):
-            c = jax.lax.dynamic_slice_in_dim(center_p, start, chunk, 0)
-            rm = jax.lax.dynamic_slice_in_dim(r2_minus, start, chunk, 0)
-            return sphere_t_mxu(rays, c, rm, od, oo, a, inv_a,
-                                t_min, t_max)
-    else:
-        def per_chunk(start):
-            c = jax.lax.dynamic_slice_in_dim(center_p, start, chunk, 0)
-            r = jax.lax.dynamic_slice_in_dim(radius_p, start, chunk, 0)
-            return sphere_t(rays, c, r, t_min, t_max)
+    def per_chunk(start):
+        c = jax.lax.dynamic_slice_in_dim(center_p, start, chunk, 0)
+        r = jax.lax.dynamic_slice_in_dim(radius_p, start, chunk, 0)
+        return sphere_t(rays, c, r, t_min, t_max)
 
     t, idx = _chunked_argmin(per_chunk, np_, n_rays, chunk)
-    return _sphere_attribs(rays, center, radius, mat_id, t, idx)
-
-
-def intersect_spheres_clustered(rays: Rays, center, radius, mat_id,
-                                kernel_table, kernel_bounds, kernel_ids,
-                                t_min, t_max, ray_valid=None,
-                                interpret: bool = False) -> Hits:
-    """Sphere intersection via the clustered Pallas kernel
-    (kernels/sphere_traverse.py): per ray-block cluster slab tests +
-    per-ray masked visiting replace the dense (rays x S) scan — the
-    scattered-balls scene pays ~1 ms instead of ~8 ms per segment
-    (PERF.md round 5). Semantics match intersect_spheres exactly
-    (sphere.cpp:20-49 root preference incl. the t window).
-
-    Differentiable replay: the kernel FIND (winning sphere id) runs on
-    stop-gradiented rays; t is recomputed from the winner's
-    center/radius with the same half-b quadratic, so center/radius/ray
-    gradients flow exactly like the dense path's.
-    """
-    from ..kernels import sphere_traverse as skmod
-
-    n_rays = rays.o.shape[0]
-    sg = jax.lax.stop_gradient
-    b = skmod.BLOCK
-    n_pad = ((n_rays + b - 1) // b) * b
-    if ray_valid is None:
-        ray_valid = jnp.ones((n_rays,), jnp.bool_)
-    rays8 = jnp.concatenate(
-        [_pad(sg(rays.o), n_pad, 0.0), _pad(sg(rays.d), n_pad, 1.0),
-         _pad(ray_valid, n_pad, False).astype(jnp.float32)[:, None],
-         jnp.zeros((n_pad, 1), jnp.float32)], axis=1)
-    t_nd, idx = skmod.intersect_spheres_pallas(
-        rays8.reshape(-1, b, 8), kernel_bounds, kernel_table, kernel_ids,
-        t_min=float(t_min), t_max=float(t_max), interpret=interpret)
-    t_nd = t_nd.reshape(-1)[:n_rays]
-    idx = idx.reshape(-1)[:n_rays]
-
-    # replay the winner's quadratic differentiably (safe-where guards
-    # exactly as sphere_t's)
-    n = center.shape[0]
-    safe = jnp.minimum(jnp.maximum(idx, 0), n - 1)
-    c = _take(center, safe)
-    r = _take(radius, safe)
-    oc = rays.o - c
-    a = jnp.sum(rays.d * rays.d, axis=-1)
-    half_b = jnp.sum(oc * rays.d, axis=-1)
-    cc = jnp.sum(oc * oc, axis=-1) - r * r
-    disc = half_b * half_b - a * cc
-    sqrtd = jnp.sqrt(jnp.where(disc > 0.0, disc, 1.0))
-    inv_a = 1.0 / a
-    r1 = (-half_b - sqrtd) * inv_a
-    r2 = (-half_b + sqrtd) * inv_a
-    in1 = (r1 >= t_min) & (r1 <= t_max)
-    in2 = (r2 >= t_min) & (r2 <= t_max)
-    t_rep = jnp.where(in1, r1, jnp.where(in2, r2, BIG))
-    t_rep = jnp.where(disc > 0.0, t_rep, BIG)
-    # grazing hits can numerically miss on replay: keep the kernel's t
-    t = jnp.where((idx >= 0) & (t_rep < BIG), t_rep,
-                  jnp.where(idx >= 0, sg(t_nd), BIG))
     return _sphere_attribs(rays, center, radius, mat_id, t, idx)
 
 
@@ -317,7 +198,7 @@ def rect_t(rays: Rays, axis, a0, a1, b0, b1, k, t_min, t_max):
     """Candidate t per (ray, rect). axis: (Q,) int32 normal axis.
 
     Scalarized: instead of gathering per-rect ray components (a (R,Q)
-    gather, catastrophic on TPU), compute the plane solve for all three
+    gather), compute the plane solve for all three
     axis choices with dense (R,Q) ops and select by the rect's axis mask.
     """
     oc = [rays.o[:, i, None] for i in range(3)]  # 3 x (R,1)
@@ -545,103 +426,61 @@ def intersect_triangles(rays: Rays, verts, normals, uvs, indices, mat_id,
                 mat_id=jnp.where(hit, mat_id, -1))
 
 
-def cluster_entries(rays: Rays, bmin, bmax, t_max):
-    """Slab-test all K cluster boxes per ray; -> (R, K) entry distance
-    (clamped >= 0), +inf where missed. bmin/bmax: (K,3)."""
-    lo = None
-    hi = None
-    for ax in range(3):  # per-axis: all intermediates are (R,K)
-        o_ax = rays.o[:, ax, None]                           # (R,1)
-        d_ax = rays.d[:, ax, None]
+def block_entries(o, d, valid, bmin, bmax, t_max):
+    """Slab-test all K cluster boxes (aabb.h:26-39) for every ray of every
+    block; -> (NB, K) nearest entry distance (clamped >= 0) over each
+    block's valid rays, +inf where none enters. o/d: (NB, B, 3); valid:
+    (NB, B); bmin/bmax: (K, 3).
+
+    The (NB, K, B) intermediate keeps the block's rays on the minor axis,
+    so the min is a row reduction: XLA's GPU compiler takes minutes over
+    the same reduction written across the middle axis of (NB, B, K) once
+    K reaches the hundreds."""
+    near = far = None
+    for ax in range(3):  # per-axis: all intermediates are (NB, K, B)
+        o_ax = o[:, None, :, ax]                               # (NB,1,B)
+        d_ax = d[:, None, :, ax]
         inv = 1.0 / jnp.where(jnp.abs(d_ax) < 1e-30, 1e-30, d_ax)
-        t0 = (bmin[None, :, ax] - o_ax) * inv                # (R,K)
-        t1 = (bmax[None, :, ax] - o_ax) * inv
-        lo_ax = jnp.minimum(t0, t1)
-        hi_ax = jnp.maximum(t0, t1)
-        lo = lo_ax if lo is None else jnp.maximum(lo, lo_ax)
-        hi = hi_ax if hi is None else jnp.minimum(hi, hi_ax)
-    entry = jnp.maximum(lo, 0.0)
-    hit = (hi > entry) & (entry < t_max)
-    return jnp.where(hit, entry, jnp.inf)
+        t0 = (bmin[None, :, ax, None] - o_ax) * inv
+        t1 = (bmax[None, :, ax, None] - o_ax) * inv
+        n_ax = jnp.minimum(t0, t1)
+        f_ax = jnp.maximum(t0, t1)
+        near = n_ax if near is None else jnp.maximum(near, n_ax)
+        far = f_ax if far is None else jnp.minimum(far, f_ax)
+    entry = jnp.maximum(near, 0.0)
+    ok = (far > entry) & (entry < t_max) & valid[:, None, :]
+    return jnp.min(jnp.where(ok, entry, jnp.inf), axis=2)
 
 
 RAY_BLOCK = 64  # rays per visit-list block
 
 
-def pack_coherence_key(e_min, first, k_clusters: int):
-    """Int-packed (cluster id, quantized entry) coherence-sort key: id in
-    the high bits, entry rank-quantized into the low bits relative to the
-    wavefront's own max finite entry — an f32 key (id*1e6 + entry) hits
-    1-ulp granularity past id ~16 and quantizes away the near-to-far
-    ordering the sort exists for. Rays missing every cluster sort last."""
-    e_bits = max(1, min(20, 31 - max(1, (k_clusters + 1)).bit_length()))
-    e_lvls = (1 << e_bits) - 1
-    finite = jnp.isfinite(e_min)
-    e_max = jnp.max(jnp.where(finite, e_min, 0.0))
-    e_q = jnp.clip(e_min / jnp.maximum(e_max, 1e-30) * e_lvls,
-                   0, e_lvls).astype(jnp.int32)
-    return jnp.where(finite, first * (e_lvls + 1) + e_q,
-                     jnp.int32(k_clusters) * (e_lvls + 1))
+def coherence_key(o, d, valid, bounds8, t_max):
+    """The coherence-sort key for a wavefront against one mesh's cluster
+    bounds (8, K), resolved by HRT_KEY_MODE. Rays that cannot hit the
+    mesh AT ALL (one slab test against the ROOT box = union of cluster
+    bounds) sort last, so whole blocks of missers exit the traversal
+    kernel after zero visits; potential hitters group by where they
+    enter the root box (see cheap_key_from_box).
 
-
-def coherence_key(o, d, valid, bounds8, t_max, interpret: bool = False):
-    """The coherence-sort key for a wavefront, resolved by HRT_KEY_MODE —
-    the ONE place both sort call sites (the per-mesh sort inside
-    intersect_mesh_clustered_pallas and the pool-level sort,
-    scene/ir.py:wavefront_sort_key) and the profiler get their key from,
-    so an A/B of the knob flips every path together.
-
-    "auto" (default): octant|entry Morton ("cheap") below CORRIDOR_MIN_K
-    clusters, entry|exit Morton ("corridor") at or above — the two
-    regimes measured opposite winners (see cheap_key_from_box).
-    "pallas": the retained keys-kernel path (~1.1 ms/segment at the
-    128k pool, kept for comparison; PERF.md round 4). o/d: (N,3) with N
-    any size — the pallas path pads to KEY_BLOCK internally."""
-    if KEY_MODE in ("auto", "cheap", "corridor"):
-        return cheap_coherence_key(o, d, valid, bounds8, t_max)
-    from ..kernels import mesh_traverse as kmod
-    n = o.shape[0]
-    kb = kmod.KEY_BLOCK
-    n_pad = ((n + kb - 1) // kb) * kb
-    rays8 = jnp.concatenate(
-        [_pad(o, n_pad, 0.0), _pad(d, n_pad, 1.0),
-         _pad(valid, n_pad, False).astype(jnp.float32)[:, None],
-         jnp.zeros((n_pad, 1), jnp.float32)], axis=1)
-    e_min, first = kmod.coherence_keys_pallas(
-        rays8.reshape(-1, kb, 8), bounds8, t_max=float(t_max),
-        interpret=interpret)
-    return pack_coherence_key(e_min.reshape(-1)[:n],
-                              first.reshape(-1)[:n], bounds8.shape[1])
-
-
-def cheap_coherence_key(o, d, valid, bounds8, t_max):
-    """Keys-kernel-free coherence key (round 4): the Pallas keys kernel
-    costs ~1.1 ms/segment at the 128k pool — nearly half the traversal
-    it serves — because it slab-tests every ray against every cluster
-    just to ORDER the sort. This key keeps the two properties that
-    matter at ~0.1 ms of dense VPU math:
-
-    - rays that cannot hit the mesh AT ALL (one slab test against the
-      ROOT box = union of cluster bounds) sort last, so whole blocks of
-      missers still exit the traversal kernel after zero visits;
-    - potential hitters group by (direction octant, 15-bit Morton cell
-      of the origin): rays starting near each other and heading the
-      same way enter the same clusters, which is what block-level
-      early-out actually needs — the exact nearest-cluster id was
-      always just a locality proxy.
-    """
+    "auto" (default): octant|entry Morton below CORRIDOR_MIN_K clusters,
+    entry|exit Morton ("corridor") at or above — fine clusters let the
+    exit cell discriminate visit sets, coarse ones do not."""
     bmin = bounds8[:3, :].min(axis=1)           # (3,) root box
     bmax = bounds8[3:6, :].max(axis=1)
-    corridor = (KEY_MODE == "corridor"
-                or (KEY_MODE == "auto"
-                    and bounds8.shape[1] >= CORRIDOR_MIN_K))
     return cheap_key_from_box(o, d, valid, bmin, bmax, t_max,
-                              corridor=corridor)
+                              corridor=use_corridor_key(bounds8.shape[1]))
+
+
+def use_corridor_key(k_clusters: int) -> bool:
+    """Whether HRT_KEY_MODE picks the entry|exit key for k_clusters."""
+    return (KEY_MODE == "corridor"
+            or (KEY_MODE == "auto" and k_clusters >= CORRIDOR_MIN_K))
 
 
 def cheap_key_from_box(o, d, valid, bmin, bmax, t_max,
                        corridor: bool = False):
-    """cheap_coherence_key against an EXPLICIT box — the pool-level
+    """coherence_key against an EXPLICIT box — the pool-level
     multi-mesh sort keys on the world-space UNION of every kernel
     mesh's root box (scene/ir.py:wavefront_sort_key), so rays heading
     for ANY mesh stay locality-grouped (keying on one mesh's box sorts
@@ -676,12 +515,10 @@ def cheap_key_from_box(o, d, valid, bmin, bmax, t_max,
         # corridor key: replace the 3-bit direction octant with the
         # 15-bit Morton cell of the root-box EXIT point — two rays share
         # a key prefix iff they enter AND leave the box in nearby cells,
-        # i.e. traverse the same corridor of clusters. Measured round 5:
-        # LOSES at K=64 (teapot 7.03M vs 7.58M — the finer direction
-        # split fragments blocks whose visit sets already fit a few
-        # clusters) and WINS at K=1024 (hires 2.46M vs 2.14M, +15% —
-        # with fine clusters the corridor actually discriminates visit
-        # sets), hence the auto switch on cluster count.
+        # i.e. traverse the same corridor of clusters. With coarse
+        # clusters the finer split only fragments blocks whose visit sets
+        # already fit a few clusters, hence the auto switch on cluster
+        # count (use_corridor_key).
         px = o + d * jnp.maximum(hi, entry)[:, None]
         qx = jnp.clip((px - bmin[None, :])
                       / jnp.maximum(bmax - bmin, 1e-30), 0.0, 1.0)
@@ -742,10 +579,7 @@ def intersect_mesh_clustered(rays: Rays, tri_verts, tri_id, bmin, bmax,
     valid = _pad(ray_valid, n_pad, False).reshape(nb, b)  # (NB, B)
 
     # dense ray x cluster slab entries; invalid lanes never open a cluster
-    entry = cluster_entries(Rays(o=o.reshape(-1, 3), d=d.reshape(-1, 3)),
-                            bmin, bmax, t_max)            # (n_pad, K)
-    entry = jnp.where(valid.reshape(-1)[:, None], entry, jnp.inf)
-    block_entry = jnp.min(entry.reshape(nb, b, k_clusters), axis=1)
+    block_entry = block_entries(o, d, valid, bmin, bmax, t_max)  # (NB, K)
     order = jnp.argsort(block_entry, axis=1).astype(jnp.int32)   # (NB, K)
     e_sorted = jnp.take_along_axis(block_entry, order, axis=1)   # (NB, K)
     # sentinel column so e_sorted[:, j+1] is always in range
@@ -834,18 +668,14 @@ def intersect_mesh_clustered_pallas(rays: Rays, tri_verts, tri_id, bmin,
     """Same contract as intersect_mesh_clustered, but traversal + leaf
     intersection + attribute interpolation run as the fused Pallas kernel
     (kernels/mesh_traverse.py): the cluster slab tests, near-to-far visit
-    order, and per-block dynamic trip counts all live inside the kernel
-    (round-2 profiling: the old XLA-side (rays x clusters) entry matrix +
-    per-block argsorts cost ~9x the kernel itself), and the winning
-    triangle's smooth normal/UV come straight out of the kernel (the XLA
-    gather-based interpolation cost 10x the traversal). Forward-only (no
-    custom VJP — the differentiable path keeps the XLA traversal).
+    order and per-block dynamic trip counts live inside the kernel — no
+    (rays x clusters) entry matrix in device memory — and the winning
+    triangle's smooth normal/UV come straight out of it. Forward-only (no
+    custom VJP — the differentiable path replays from the winning id).
 
     tri_soa (K,24,L) / bounds8 (8,K): prebuilt device tables
     (kernels.pack_mesh_soa / pack_bounds). Pass them when the mesh is
-    static — XLA gathers of (K,L,3,x) corner attributes are ~microsecond-
-    per-element slow on TPU, so building them per call costs more than the
-    whole traversal. When omitted they are built here from
+    static; when omitted they are built here from
     tri_verts/tri_normals/tri_uvs (zeros when those are omitted too —
     pure-occlusion queries).
     Returns (t (R,), gid (R,) int32, hit (R,), normal (R,3), uv (R,2)).
@@ -856,20 +686,10 @@ def intersect_mesh_clustered_pallas(rays: Rays, tri_verts, tri_id, bmin,
     k_clusters, leaf = tri_id.shape
     if cohsort is None:
         # callers that already sorted the wavefront (integrator/wavefront
-        # presorts the whole lane pool once per segment) pass False
+        # presorts the whole lane pool) pass False
         cohsort = not NO_COHSORT
-    # oversized meshes run the HBM-streaming kernel, which wants much
-    # smaller ray blocks (see kernels.STREAM_BLOCK)
-    streaming = ((tri_soa is not None
-                  and tri_soa.shape[1] == kmod.STREAM_ROWS)
-                 or (tri_soa is None
-                     and not kmod.mesh_fits_vmem(k_clusters, leaf)))
-    b = kmod.STREAM_BLOCK if streaming else kmod.BLOCK
-    # only the (non-default) Pallas keys kernel needs KEY_BLOCK alignment
-    align = (max(b, kmod.KEY_BLOCK)
-             if (cohsort and KEY_MODE == "pallas") else b)
-    n_pad = ((n_rays + align - 1) // align) * align
-    nb = n_pad // b
+    b = kmod.BLOCK
+    n_pad = ((n_rays + b - 1) // b) * b
 
     if ray_valid is None:
         ray_valid = jnp.ones((n_rays,), jnp.bool_)
@@ -883,54 +703,39 @@ def intersect_mesh_clustered_pallas(rays: Rays, tri_verts, tri_id, bmin,
         if tri_uvs is None:
             tri_uvs = jnp.zeros((k_clusters, leaf, 3, 2), jnp.float32)
         tri_soa = kmod.pack_mesh_soa(tri_verts, tri_normals, tri_uvs)
-        if not kmod.mesh_fits_vmem(k_clusters, leaf):
-            # oversized mesh: repack for the HBM-streaming kernel (ids
-            # embedded as a bitcast row; see kernels.pack_mesh_stream)
-            tri_soa = kmod.pack_mesh_stream(tri_soa, tri_id)
     if bounds8 is None:
         bounds8 = kmod.pack_bounds(bmin, bmax)
 
     rays8 = jnp.concatenate(
-        [o, d, valid.astype(jnp.float32)[:, None],
-         jnp.zeros((n_pad, 1), jnp.float32)], axis=1)
+        [o.T, d.T, valid.astype(jnp.float32)[None, :],
+         jnp.zeros((1, n_pad), jnp.float32)], axis=0)      # (8, n_pad)
 
     if cohsort:
-        # coherence sort: group rays by their nearest-entry cluster (ties
-        # by entry distance), rays that miss every cluster packed LAST —
-        # whole blocks of missers exit the kernel loop after zero visits,
-        # and same-first-cluster blocks open ~2x fewer clusters
-        # (mid-render wavefronts are incoherent; measured 2x total-visit
-        # reduction). The reference gets this "for free" from per-ray
-        # recursion. HRT_NO_COHSORT=1 disables (the two argsorts +
-        # gathers can rival the savings on small scenes).
-        sort_key = coherence_key(o, d, valid, bounds8, float(t_max),
-                                 interpret=interpret)
-        perm = jnp.argsort(sort_key)
-        rays8 = rays8[perm]
+        # coherence sort: rays that miss the mesh pack LAST (whole blocks
+        # of missers exit the kernel loop after zero visits) and the rest
+        # group by where they enter the mesh, so a block's rays open
+        # mostly the same clusters. The reference gets this "for free"
+        # from per-ray recursion. HRT_NO_COHSORT=1 disables.
+        perm = jnp.argsort(coherence_key(o, d, valid, bounds8,
+                                         float(t_max)))
+        rays8 = rays8[:, perm]
 
     out, id_best = kmod.traverse_clusters_pallas(
-        rays8.reshape(nb, b, 8), bounds8, tri_soa, tri_id,
-        t_max=float(t_max), interpret=interpret, need_uv=need_uv)
-    out = out.reshape(-1, 8)
-    id_best = id_best.reshape(-1)
+        rays8, bounds8, tri_soa, tri_id, t_max=float(t_max),
+        interpret=interpret, need_uv=need_uv)
     if cohsort:
-        # undo the coherence sort (HRT_UNSORT_MODE). "argsort" (default):
-        # inverse permutation via a second argsort + gathers — 7.58M vs
-        # 6.42M rays/s over the round-3 scatter undo on the round-5
-        # teapot config (PERF.md round 5; row-scatters are the most
-        # expensive primitive in the segment). "scatter": .at[perm].set
-        # on the two outputs, kept for chips with cheaper scatters.
+        # undo the coherence sort (HRT_UNSORT_MODE)
         if UNSORT_MODE == "argsort":
             inv = jnp.argsort(perm).astype(jnp.int32)
-            out = out[inv]
+            out = out[:, inv]
             id_best = id_best[inv]
         else:
-            out = jnp.zeros_like(out).at[perm].set(out)
+            out = jnp.zeros_like(out).at[:, perm].set(out)
             id_best = jnp.zeros_like(id_best).at[perm].set(id_best)
-    out = out[:n_rays]
+    out = out[:, :n_rays]
     id_best = id_best[:n_rays]
-    t_best = out[:, 0]
-    return (t_best, id_best, t_best < BIG, out[:, 1:4], out[:, 4:6])
+    t_best = out[0]
+    return (t_best, id_best, t_best < BIG, out[1:4].T, out[4:6].T)
 
 
 def intersect_triangles_bvh(rays: Rays, verts, normals, uvs, indices,
@@ -941,8 +746,9 @@ def intersect_triangles_bvh(rays: Rays, verts, normals, uvs, indices,
                             cohsort=None, need_uv: bool = True) -> Hits:
     """Full mesh hit via the cluster BVH: find (t, tri) then interpolate
     attributes exactly like intersect_triangles. backend: "xla" (exact
-    lockstep loop, differentiable) or "pallas" (fused TPU kernel with
-    in-kernel attribute interpolation — no per-ray vertex gathers).
+    lockstep loop, differentiable), "pallas" (fused GPU kernel with
+    in-kernel attribute interpolation — no per-ray vertex gathers) or
+    "pallas_replay" (kernel find, differentiable replay).
     tri_soa/bounds8: prebuilt kernel tables for static meshes (see
     intersect_mesh_clustered_pallas)."""
     if backend == "pallas":
@@ -965,8 +771,8 @@ def intersect_triangles_bvh(rays: Rays, verts, normals, uvs, indices,
     # Differentiable paths: the discrete FIND (which triangle wins) runs
     # behind stop_gradient — via the exact XLA traversal (backend="xla",
     # always correct, tracks live vertex positions) or the fused Pallas
-    # kernel over the BUILD-TIME tables (backend="pallas_replay", ~5x
-    # faster; exact while the geometry is static, i.e. material/texture
+    # kernel over the BUILD-TIME tables (backend="pallas_replay"; exact
+    # while the geometry is static, i.e. material/texture
     # fits — vertex fits must use "xla" so moved vertices are FOUND, not
     # just replayed). Everything differentiable is then REPLAYED from the
     # winning triangle id: t via the watertight formula, attributes via

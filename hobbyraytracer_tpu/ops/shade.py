@@ -3,7 +3,7 @@
 Replaces the reference's `Material::scatter` virtual dispatch
 (material.h:60-71) with a typed SoA material table and masked per-type
 vectorized sampling. With only ~7 material types, computing every lobe and
-selecting by mask beats sort-by-material on TPU (SURVEY.md §7 hard part 3).
+selecting by mask beats sort-by-material (SURVEY.md §7 hard part 3).
 
 MatVec3/MatScalar (constant-or-texture variants, material.h:10-58) become
 (constant, tex_id) pairs with tex_id == -1 meaning "use the constant".
@@ -11,12 +11,11 @@ All constants here are differentiable leaves for the inverse-rendering path.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core import mathx, rng
+from ..core import mathx, rng, struct
 from ..core.mathx import take_rows as _take
 from ..core.types import Hits, Rays
 from . import texture as tex_ops
@@ -34,13 +33,13 @@ _ALL_TYPES = (MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
               MAT_ISOTROPIC, MAT_PBR, MAT_UVTEST)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MaterialTable:
     """M materials; index 0 is a reserved default lambertian 50% grey.
 
     `present` is the STATIC set of material types in the table: scatter()
     skips absent lobes (and their RNG draws / texture gathers) at trace
-    time — the TPU analogue of the reference never calling a scatter()
+    time — the analogue of the reference never calling a scatter()
     that no object's vtable points to."""
     mtype: jnp.ndarray         # (M,) int32
     albedo: jnp.ndarray        # (M,3)
@@ -52,19 +51,18 @@ class MaterialTable:
     ior: jnp.ndarray           # (M,)  dielectric index of refraction
     metallness: jnp.ndarray    # (M,)  PBR mix constant
     metallness_tex: jnp.ndarray  # (M,) int32
-    present: tuple = flax.struct.field(pytree_node=False,
+    present: tuple = struct.field(pytree_node=False,
                                        default=_ALL_TYPES)
     # static per-channel "any material uses a texture here" flags: a
     # constant-only channel skips the texture gather entirely
-    textured: tuple = flax.struct.field(
+    textured: tuple = struct.field(
         pytree_node=False,
         default=("albedo", "roughness", "strength", "metallness"))
     # static set of texture TYPES material channels can reference: lets
     # colour_value skip whole lookup branches — e.g. a scene whose only
     # material texture is checkered never pays the image/env atlas
     # gathers in shade, even though the env map shares the texture table
-    # (round 5: balls shade 6.6 -> ~0.9 ms/segment)
-    tex_types: tuple = flax.struct.field(
+    tex_types: tuple = struct.field(
         pytree_node=False, default=(0, 1, 2, 3))
 
 
@@ -112,10 +110,8 @@ def build_table(specs, tex_ttypes=None) -> MaterialTable:
 def _gather_params(mats: MaterialTable, mid):
     """ONE packed row gather of every per-lane material channel.
 
-    Separate (N,) gathers cost ~1.8 ms EACH at a 196k pool on a
-    486-row table (round-5 balls profile: 4 gathers = 7.05 ms of the
-    6.6 ms shade row — the whole shade wall), while the TPU cost model
-    says row count is everything and row width is free. So: concatenate
+    Separate (N,) gathers pay per gathered row, and row width is nearly
+    free, so: concatenate
     the (M,) channels into one (M, 12) matrix (an M-sized op, ~free),
     gather (N, 12) once, slice. Ints ride along bitcast to f32
     (lossless round trip). Differentiable channels (albedo, roughness,
@@ -124,9 +120,8 @@ def _gather_params(mats: MaterialTable, mid):
 
     SMALL tables skip the packing: XLA lowers gathers from a table with
     few rows to vectorized selects that are cheaper than one real
-    packed gather (measured round 5: packing always-on cost the
-    5-material teapot bench 7%, while the 486-material balls bench
-    gained 55% — hence the static M >= 32 switch).
+    packed gather (the static M >= 32 switch; not yet re-measured on
+    the H100).
     Returns dict of per-lane channels."""
     if mats.mtype.shape[0] < 32:
         return {f: _take(getattr(mats, f), mid)

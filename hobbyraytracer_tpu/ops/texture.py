@@ -2,16 +2,16 @@
 
 The reference's `Texture::colourValue(u, v, p)` virtual dispatch
 (texture.h:3-7) becomes a typed SoA table + one vectorized gather kernel:
-all image/environment pixel data lives in a single flat fp32 atlas in HBM;
+all image/environment pixel data lives in a single flat fp32 atlas on device;
 solid and checkered are pure arithmetic; dispatch is a masked select over
 the (tiny) set of texture types.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 
+from ..core import struct
 from ..core.mathx import take_rows as _take
 
 TEX_SOLID = 0       # SolidColourTexture (texture.h:9-25)
@@ -22,7 +22,7 @@ TEX_ENVIRONMENT = 3 # EnvironmentMap (texture.cpp:76-115)
 DEBUG_CYAN = (0.0, 1.0, 1.0)  # missing-data fallback (texture.cpp:56-57)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class TextureTable:
     """All scene textures. T = number of textures (>= 1; index 0 is a
     reserved solid-white so mat tables can always hold a valid id).
@@ -38,7 +38,7 @@ class TextureTable:
     offset: jnp.ndarray   # (T,) int32 start into atlas
     width: jnp.ndarray    # (T,) int32
     height: jnp.ndarray   # (T,) int32
-    bilinear: bool = flax.struct.field(pytree_node=False, default=False)
+    bilinear: bool = struct.field(pytree_node=False, default=False)
 
 
 def build_table(specs) -> TextureTable:
@@ -87,9 +87,8 @@ def colour_value(tab: TextureTable, tex_id, u, v, p,
     can actually reference — e.g. a material table whose channels only
     point at solid/checkered textures passes (TEX_SOLID, TEX_CHECKERED)
     and the image/environment atlas gathers are skipped at trace time.
-    The (N,) atlas row gathers are the expensive part of a lookup
-    (round-5 balls profile: shade 6.6 -> ~0.9 ms/segment once the
-    unreferenced env-map gather is gated off); None computes all types.
+    The (N,) atlas row gathers are the expensive part of a lookup; None
+    computes all types.
 
     Per-type semantics match the reference exactly:
     - solid: constant (texture.h:20-23)

@@ -2,19 +2,18 @@
 
 The reference's only parallelism is a single-node pixel thread pool with a
 mutex-guarded framebuffer (std::for_each_n(std::execution::par, ...),
-main.cpp:111-135; mutex main.cpp:90,130). TPU-native replacement
-(SURVEY.md §2.3):
+main.cpp:111-135; mutex main.cpp:90,130). Replacement (SURVEY.md §2.3):
 
 - rays are independent, the scene is small: classic data parallelism.
   Pixel/sample batches are sharded over the mesh's 'rays' axis; the scene
   pytree (BVH, triangle soup, material/texture tables) is replicated —
-  broadcast once over ICI at put time.
+  broadcast once at put time.
 - the SAME single-device jitted program is partitioned by XLA's SPMD
-  (GSPMD) via input shardings: no mutex, no manual collectives; each chip
-  owns its slice of the HBM framebuffer, and parameter gradients in the
+  (GSPMD) via input shardings: no mutex, no manual collectives; each
+  device owns its slice of the framebuffer, and parameter gradients in the
   fit path come out of jit as an XLA-inserted psum (reduce over the mesh).
-- multi-host: `init_multihost` wires jax.distributed; ICI within a slice,
-  DCN across hosts — all hidden behind the same mesh.
+- multi-host: `init_multihost` wires jax.distributed — hidden behind the
+  same mesh.
 """
 from __future__ import annotations
 
@@ -49,7 +48,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = RAY_AXIS) -> Mesh:
 
 
 def replicate_scene(scene, mesh: Mesh):
-    """Broadcast the scene pytree to every chip (fully replicated)."""
+    """Broadcast the scene pytree to every device (fully replicated)."""
     sharding = NamedSharding(mesh, P())
     return jax.device_put(scene, sharding)
 
@@ -63,7 +62,7 @@ def shard_rays(rays: Rays, mesh: Mesh) -> Rays:
 
 def _warn_batch_xla_find(scene) -> bool:
     """True (and a logged warning) when the GSPMD batch path will pin a
-    kernel-eligible mesh scene to the ~5x-slower XLA traversal."""
+    kernel-eligible mesh scene to the slower XLA traversal."""
     import logging
 
     from ..scene import ir as scene_ir
@@ -74,7 +73,7 @@ def _warn_batch_xla_find(scene) -> bool:
                 logging.getLogger(__name__).warning(
                     "multi-device batch render uses the XLA mesh "
                     "traversal (the fused Pallas kernel has no GSPMD "
-                    "partitioning rule) — expect ~5x slower mesh "
+                    "partitioning rule) — expect slower mesh "
                     "intersection; prefer the wavefront integrator "
                     "(render_wavefront_sharded), which runs the kernel "
                     "on every device via shard_map.")
@@ -96,8 +95,8 @@ def render_sharded(scene, camera, width: int, height: int, samples: int,
 
     # mesh_backend="xla": the Pallas traversal has no GSPMD partitioning
     # rule; the XLA traversal partitions over the rays axis like any op.
-    # That choice costs ~5x on mesh scenes — say so instead of silently
-    # degrading (round-4 verdict #8); the shard_map wavefront path
+    # That choice is slower on mesh scenes — say so instead of silently
+    # degrading; the shard_map wavefront path
     # (render_wavefront_sharded) runs the fused kernel per device and is
     # the recommended multi-device renderer.
     _warn_batch_xla_find(scene)
@@ -131,7 +130,7 @@ def render_wavefront_sharded(scene, camera, width: int, height: int,
                              state=None, rr: bool = True):
     """Data-parallel regenerative-wavefront render over the mesh.
 
-    TPU-native version of the reference's per-pixel thread pool
+    Data-parallel version of the reference's per-pixel thread pool
     (main.cpp:111-135): the (pixel, sample) work queue is split into one
     contiguous slice per device; `shard_map` runs each device's OWN
     drain loop (integrator/wavefront.py) over its slice with its own ray
@@ -248,10 +247,9 @@ def sharded_render_loss(params, rebuild, camera, width, height, key,
     shard_map: each device renders its OWN contiguous pixel slice with
     the per-device differentiable integrator — including the
     pallas_replay mesh find, which has no GSPMD partitioning rule and
-    therefore could not run under jit-partitioning (the round-3 pin to
-    the ~1.8x slower XLA find, PERF.md). Parameters are replicated; their
-    gradient under jax.grad is the psum of per-device contributions —
-    the gradient all-reduce rides ICI like any data-parallel trainer.
+    therefore could not run under jit-partitioning. Parameters are
+    replicated; their gradient under jax.grad is the psum of per-device
+    contributions, like any data-parallel trainer's all-reduce.
 
     Every RNG draw inside the slice render is the full-image stream
     sliced to the device's rows (diff/fit.py:render_linear_slice), so the
@@ -297,9 +295,8 @@ def make_sharded_fit_step(rebuild, camera, width, height, n_samples,
     """Build ONE jitted data-parallel fit step (compile once, call per
     step): per-device shard_map render of the pixel slice (Pallas find
     included — see sharded_render_loss), psum'd loss/grads, replicated
-    optimizer update. The TPU equivalent of a gradient all-reduce
-    trainer; the reference has no gradient communication at all
-    (SURVEY §2.3). Returns step(params, opt_state, key) ->
+    optimizer update. A gradient all-reduce trainer; the reference has no
+    gradient communication at all (SURVEY §2.3). Returns step(params, opt_state, key) ->
     (params, opt_state, loss)."""
     import optax
 

@@ -312,17 +312,6 @@ def build_scene(desc: SceneDesc) -> RenderJob:
                                       np.float32).reshape(-1, 3)),
         radius=jnp.asarray(pooled_spheres["radius"], jnp.float32),
         mat_id=jnp.asarray(pooled_spheres["mat_id"], jnp.int32))
-    if sphere_table.center.shape[0] >= SPHERE_CLUSTER_MIN:
-        # big sphere pools get the clustered Pallas find (>= 2 clusters
-        # of 128; below that the dense scan is already cheap)
-        from .bvh import build_sphere_clusters
-        sc = build_sphere_clusters(
-            np.asarray(pooled_spheres["center"], np.float32).reshape(-1, 3),
-            np.asarray(pooled_spheres["radius"], np.float32))
-        sphere_table = sphere_table.replace(
-            kernel_table=jnp.asarray(sc["table"]),
-            kernel_bounds=jnp.asarray(sc["bounds8"]),
-            kernel_ids=jnp.asarray(sc["ids"]))
 
     scene = ir.SceneIR(
         spheres=sphere_table,
@@ -345,10 +334,7 @@ def build_scene(desc: SceneDesc) -> RenderJob:
 # meshes below this triangle count use the dense brute-force path (the
 # fixed per-bounce cull cost isn't worth it)
 BVH_MIN_TRIS = 64
-# pooled sphere tables at or above this count get the clustered Pallas
-# find (kernels/sphere_traverse.py); smaller pools keep the dense scan
-SPHERE_CLUSTER_MIN = 129
-# leaf size 128 = one full VPU lane row per (ray, leaf-triangle) op
+# triangles per cluster leaf (a multiple of the kernel's LEAF_TILE)
 BVH_LEAF_SIZE = 128
 
 
@@ -369,21 +355,14 @@ def _mesh_geom(m, mat_id) -> ir.MeshGeom:
         from .bvh import build_clusters
         cl = build_clusters(m["verts"], m["indices"],
                             leaf_size=BVH_LEAF_SIZE)
-        # host-side (numpy) corner-attribute gathers + kernel SoA pack:
-        # doing these per trace on device is ~1 us/element on TPU (see
-        # MeshGeom.tri_soa)
+        # host-side (numpy) corner-attribute gathers + kernel SoA pack,
+        # once per build instead of per trace (see MeshGeom.tri_soa)
         safe_id = np.maximum(np.asarray(cl["tri_id"]), 0)
         corner = np.asarray(m["indices"])[safe_id]          # (K,L,3)
         tri_soa = kmod.pack_mesh_soa(
             jnp.asarray(cl["tri_verts"]),
             jnp.asarray(np.asarray(m["normals"], np.float32)[corner]),
             jnp.asarray(np.asarray(m["uvs"], np.float32)[corner]))
-        k, leaf = cl["tri_id"].shape
-        if not kmod.mesh_fits_vmem(k, leaf):
-            # too big for the VMEM-resident kernel: repack for the
-            # HBM-streaming variant (ids embedded as a bitcast row)
-            tri_soa = kmod.pack_mesh_stream(tri_soa,
-                                            jnp.asarray(cl["tri_id"]))
         geom = geom.replace(
             cluster_id=jnp.asarray(cl["tri_id"]),
             cluster_bmin=jnp.asarray(cl["bmin"]),

@@ -3,7 +3,8 @@
 The reference builds a per-mesh pointer BVH with random split axis +
 median-split sorting (BVHNode, bvh.cpp:6-61) and traverses it recursively
 per ray (bvh.cpp:69-78). Pointer-chasing per-ray traversal is the wrong
-shape for a TPU (per-lane divergence, scalar gathers), so the new layout is
+shape for wide data-parallel hardware (per-lane divergence, scalar
+gathers), so the new layout is
 a *flattened two-level BVH with uniform leaves*:
 
 - triangles are recursively median-split on the centroid's longest axis
@@ -33,8 +34,7 @@ import numpy as np
 
 # HRT_BVH_SAH: constrained surface-area-heuristic cluster build (see
 # sah_split_order) instead of the longest-axis median split. DEFAULT ON
-# (round-5 benches: teapot +1%, two-teapot +2%, 105k-tri hires +11% —
-# tighter boxes mean fewer cluster visits per ray block); set
+# (tighter boxes mean fewer cluster visits per ray block); set
 # HRT_BVH_SAH=0 for the median build. Native C++ SAH
 # (hrt_build_clusters_sah) runs when built; the numpy fallback costs
 # ~2.4 s at 105k tris. Read once at import like every other knob.
@@ -143,43 +143,3 @@ def build_clusters(verts: np.ndarray, indices: np.ndarray,
     return {"tri_verts": tri_verts, "tri_id": tri_id,
             "bmin": bmin, "bmax": bmax}
 
-
-def build_sphere_clusters(center: np.ndarray, radius: np.ndarray,
-                          leaf_size: int = 128) -> dict:
-    """Cluster a sphere table for the Pallas sphere kernel
-    (kernels/sphere_traverse.py): median-split the centers into groups
-    of <= leaf_size (same spatially-tight build as the triangle
-    clusters), pad each group to exactly leaf_size, and pack
-
-    - table   (K, 8, L) f32 rows [cx cy cz r2 0 0 0 0] (pad r2 = -1:
-              discriminant always negative -> never hits),
-    - bounds8 (8, K) f32 [bmin.xyz bmax.xyz 0 0] per cluster
-              (union of center +- radius over REAL spheres),
-    - ids     (K, L) int32 GLOBAL sphere indices (-1 pad) — the
-              original SphereTable stays unpermuted; attribute gathers
-              use these ids directly.
-    """
-    center = np.asarray(center, np.float32)
-    radius = np.asarray(radius, np.float32)
-    groups = median_split_order(center, leaf_size)
-    k = len(groups)
-    table = np.zeros((k, 8, leaf_size), np.float32)
-    table[:, 3, :] = -1.0
-    ids = np.full((k, leaf_size), -1, np.int32)
-    bmin = np.empty((k, 3), np.float32)
-    bmax = np.empty((k, 3), np.float32)
-    for gi, g in enumerate(groups):
-        n = len(g)
-        c = center[g]
-        r = np.abs(radius[g])
-        table[gi, 0, :n] = c[:, 0]
-        table[gi, 1, :n] = c[:, 1]
-        table[gi, 2, :n] = c[:, 2]
-        table[gi, 3, :n] = radius[g] * radius[g]
-        ids[gi, :n] = g
-        bmin[gi] = (c - r[:, None]).min(axis=0)
-        bmax[gi] = (c + r[:, None]).max(axis=0)
-    bounds8 = np.concatenate(
-        [bmin.T, bmax.T, np.zeros((2, k), np.float32)], axis=0)
-    return {"table": table, "bounds8": bounds8.astype(np.float32),
-            "ids": ids}

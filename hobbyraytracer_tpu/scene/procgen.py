@@ -210,10 +210,8 @@ def teapot(n_seg=44, n_profile=40, scale=1.0):
 
 def teapot_hires(scale=1.0):
     """~105k-tri version of the teapot (n_seg=260, n_profile=200): the
-    streaming-kernel benchmark mesh — far past the VMEM-resident
-    kernel's ~45k-tri ceiling (kernels.mesh_fits_vmem), proving the
-    HBM-streaming traversal at the scale the reference's recursive BVH
-    (bvh.cpp:6-78) handles without special-casing."""
+    large-mesh benchmark (~822 clusters), at the scale the reference's
+    recursive BVH (bvh.cpp:6-78) handles without special-casing."""
     return teapot(n_seg=260, n_profile=200, scale=scale)
 
 

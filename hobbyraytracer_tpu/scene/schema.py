@@ -28,7 +28,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-import yaml
+from .yaml_subset import YamlError, loads
 
 
 class SceneError(Exception):
@@ -135,8 +135,8 @@ def _mat_value(node: dict, name: str, ctx: str, scalar: bool) -> MatValue:
 def load_scene_desc(path: str) -> SceneDesc:
     try:
         with open(path) as f:
-            root = yaml.safe_load(f)
-    except (OSError, yaml.YAMLError) as e:
+            root = loads(f.read())
+    except (OSError, UnicodeDecodeError, YamlError) as e:
         raise SceneError(str(e))
     if not isinstance(root, dict):
         raise SceneError("scene file is not a mapping")

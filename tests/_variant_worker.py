@@ -54,24 +54,18 @@ def main() -> int:
         tri_normals=jnp.asarray(nrm[corner]),
         tri_uvs=jnp.asarray(uvs[corner]))
 
-    # sphere path through the FULL scene routing (covers the
-    # HRT_SPHERE_KERNEL / HRT_SPHERE_MXU knobs end-to-end)
+    # sphere path through the FULL scene routing
     os.environ["HRT_PALLAS_INTERPRET"] = "1"
     from hobbyraytracer_tpu.ops import shade as shade_ops
     from hobbyraytracer_tpu.ops import texture as tex_ops
     from hobbyraytracer_tpu.scene import ir as scene_ir
-    from hobbyraytracer_tpu.scene.bvh import build_sphere_clusters
 
     s_n = 300
     s_center = rng.uniform(-8, 8, (s_n, 3)).astype(np.float32)
     s_radius = rng.uniform(0.2, 1.0, (s_n,)).astype(np.float32)
-    sc = build_sphere_clusters(s_center, s_radius)
     spheres = scene_ir.SphereTable(
         center=jnp.asarray(s_center), radius=jnp.asarray(s_radius),
-        mat_id=jnp.zeros((s_n,), jnp.int32),
-        kernel_table=jnp.asarray(sc["table"]),
-        kernel_bounds=jnp.asarray(sc["bounds8"]),
-        kernel_ids=jnp.asarray(sc["ids"]))
+        mat_id=jnp.zeros((s_n,), jnp.int32))
     scene = scene_ir.SceneIR(
         spheres=spheres,
         rects=scene_ir.RectTable(

@@ -146,8 +146,8 @@ def test_graft_entry_contract():
 
 
 def test_scaling_script_core():
-    """scripts/scaling.py's measurement path must keep working (the
-    SCALING.json artifact is produced by it): tiny virtual-mesh sweep,
+    """scripts/scaling.py's measurement path must keep working: tiny
+    virtual-mesh sweep,
     every run drains all items and reports finite positive rates."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -299,7 +299,7 @@ def test_batch_multidevice_xla_find_is_explicit(caplog):
     here = os.path.join(os.path.dirname(__file__), "..", "scenes")
     job = build_scene(load_scene_desc(
         os.path.join(here, "teapot_scene.yaml")))
-    os.environ["HRT_PALLAS_INTERPRET"] = "1"   # CPU: route as on-TPU
+    os.environ["HRT_PALLAS_INTERPRET"] = "1"   # CPU: route as on the GPU
     try:
         with caplog.at_level(logging.WARNING,
                              logger="hobbyraytracer_tpu.parallel.shard"):

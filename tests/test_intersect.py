@@ -1,7 +1,6 @@
 """Intersection kernels vs scalar numpy oracles (SURVEY.md §4: sphere
 quadratic sphere.cpp:20-49, watertight tri triangle.cpp:57-131, slab
 aabb.h:26-39, rects aarect.h)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -382,23 +381,24 @@ def test_native_obj_parse_matches_python():
                                py["uvs"][py["indices"]], rtol=1e-6)
 
 
-def test_vmem_fallback_triggers_and_renders_correctly(caplog):
-    """A mesh whose cluster count exceeds even the STREAMING kernel's
-    VMEM budget (bounds + per-ray entry matrix; round 5 — the resident
-    ceiling now routes to the streaming kernel instead of XLA) must fall
-    back to the XLA traversal (with a warning) and still intersect
+def test_vmem_fallback_triggers_and_renders_correctly(caplog, monkeypatch):
+    """A mesh whose cluster count exceeds the kernel's register-held entry
+    row (kernels.kernel_fits) must fall back to the XLA traversal (with a
+    warning) where the kernel would otherwise run, and still intersect
     exactly. Clusters beyond the real geometry are -1 padding, so the
     table is huge while the actual work stays test-sized."""
     import logging
 
-    from hobbyraytracer_tpu.kernels import mesh_fits_stream
+    from hobbyraytracer_tpu.kernels import kernel_fits
     from hobbyraytracer_tpu.scene import ir as scene_ir
+
+    monkeypatch.setenv("HRT_PALLAS_INTERPRET", "1")   # kernel-capable
 
     verts, idx = _random_mesh(11, n_tris=100)
     tv, tid, bmin, bmax = _bvh_tables(verts, idx, leaf_size=16)
     k, leaf = tid.shape
     k_big = k
-    while mesh_fits_stream(k_big, leaf):
+    while kernel_fits(k_big):
         k_big *= 2
     pad_k = k_big - k
     tid_big = jnp.concatenate(
@@ -413,12 +413,13 @@ def test_vmem_fallback_triggers_and_renders_correctly(caplog):
         cluster_bmin=jnp.concatenate([bmin, far]),
         cluster_bmax=jnp.concatenate([bmax, far]),
         use_bvh=True)
-    scene_ir._VMEM_FALLBACK_WARNED.clear()
+    scene_ir._FALLBACK_WARNED.clear()
     with caplog.at_level(logging.WARNING,
                          logger="hobbyraytracer_tpu.scene.ir"):
         backend, interp = scene_ir._resolve_mesh_backend("auto", mesh)
     assert backend == "xla"
-    assert any("VMEM budget" in rec.message for rec in caplog.records)
+    assert any("entry-row budget" in rec.message
+               for rec in caplog.records)
     # and the auto path still intersects exactly like the explicit XLA path
     inst = scene_ir.Instance(kind="mesh", mesh=mesh)
     r = _random_rays(12, n=128)
@@ -429,92 +430,3 @@ def test_vmem_fallback_triggers_and_renders_correctly(caplog):
                                   np.asarray(h_xla.hit))
     np.testing.assert_allclose(np.asarray(h_auto.t), np.asarray(h_xla.t),
                                rtol=1e-6)
-
-
-def test_sphere_kernel_parity_and_replay_grads():
-    """Clustered Pallas sphere find (kernels/sphere_traverse.py) +
-    differentiable replay must match the dense scan: hits exactly, t to
-    fp tolerance, and center-gradients through the replay (interpret
-    mode on CPU). Measured slower than the dense scan at bench scale
-    (PERF.md round 5) — kept as an opt-in path for large pools, so it
-    keeps parity coverage like every other retained variant."""
-    import numpy as np
-
-    from hobbyraytracer_tpu.core.mathx import BIG, T_MIN
-    from hobbyraytracer_tpu.scene.bvh import build_sphere_clusters
-
-    rng = np.random.default_rng(3)
-    s = 485
-    center = rng.uniform(-10, 10, (s, 3)).astype(np.float32)
-    radius = rng.uniform(0.2, 1.5, (s,)).astype(np.float32)
-    mat = rng.integers(0, 5, (s,)).astype(np.int32)
-    sc = build_sphere_clusters(center, radius)
-    o = rng.uniform(-15, 15, (700, 3)).astype(np.float32)
-    d = rng.normal(0, 1, (700, 3)).astype(np.float32)
-    r = Rays(o=jnp.asarray(o), d=jnp.asarray(d))
-    args = (jnp.asarray(sc["table"]), jnp.asarray(sc["bounds8"]),
-            jnp.asarray(sc["ids"]))
-
-    h_d = isect.intersect_spheres(r, jnp.asarray(center),
-                                  jnp.asarray(radius), jnp.asarray(mat),
-                                  T_MIN, BIG)
-    h_k = isect.intersect_spheres_clustered(
-        r, jnp.asarray(center), jnp.asarray(radius), jnp.asarray(mat),
-        *args, T_MIN, BIG, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_k.hit), np.asarray(h_d.hit))
-    m = np.asarray(h_d.hit)
-    np.testing.assert_allclose(np.asarray(h_k.t)[m], np.asarray(h_d.t)[m],
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(h_k.mat_id),
-                                  np.asarray(h_d.mat_id))
-    np.testing.assert_allclose(np.asarray(h_k.normal)[m],
-                               np.asarray(h_d.normal)[m],
-                               rtol=1e-3, atol=1e-3)
-
-    def loss(fn):
-        def f(c):
-            h = fn(c)
-            return jnp.sum(jnp.where(h.hit, h.t, 0.0))
-        return f
-
-    g_d = jax.grad(loss(lambda c: isect.intersect_spheres(
-        r, c, jnp.asarray(radius), jnp.asarray(mat), T_MIN, BIG)))(
-            jnp.asarray(center))
-    g_k = jax.grad(loss(lambda c: isect.intersect_spheres_clustered(
-        r, c, jnp.asarray(radius), jnp.asarray(mat), *args, T_MIN, BIG,
-        interpret=True)))(jnp.asarray(center))
-    diff = np.abs(np.asarray(g_d) - np.asarray(g_k))
-    # disagreements only at exact t-ties / tangent rays (subgradient
-    # choice): allow a handful of spheres, tiny relative to |g|~15
-    assert (diff.max(axis=1) > 1e-2).sum() <= 3, diff.max()
-
-
-def test_sphere_mxu_matches_reference_formulation():
-    """sphere_t_mxu (MXU dot products + expanded |oc|^2) must match
-    sphere_t within fp tolerance, including the catastrophic-
-    cancellation-prone huge ground sphere (r=1000 at y=-1000)."""
-    import numpy as np
-
-    from hobbyraytracer_tpu.core.mathx import BIG, T_MIN
-
-    center = jnp.asarray([[0.0, -1000.0, 0.0], [4.0, 1.0, 0.0],
-                          [-3.0, 0.5, 2.0]], jnp.float32)
-    radius = jnp.asarray([1000.0, 1.0, 0.5], jnp.float32)
-    rng = np.random.default_rng(0)
-    o = rng.uniform(-10, 10, (2048, 3)).astype(np.float32)
-    o[:, 1] = np.abs(o[:, 1]) + 0.5
-    d = rng.normal(0, 1, (2048, 3)).astype(np.float32)
-    r = Rays(o=jnp.asarray(o), d=jnp.asarray(d))
-    t_ref = np.asarray(isect.sphere_t(r, center, radius, T_MIN, BIG))
-    od = jnp.sum(r.o * r.d, axis=1)
-    oo = jnp.sum(r.o * r.o, axis=1)
-    a = jnp.sum(r.d * r.d, axis=1)
-    r2m = jnp.sum(center * center, axis=1) - radius * radius
-    t_mxu = np.asarray(isect.sphere_t_mxu(r, center, r2m, od, oo, a,
-                                          1.0 / a, T_MIN, BIG))
-    hit_ref = t_ref < 1e29
-    hit_mxu = t_mxu < 1e29
-    assert (hit_ref == hit_mxu).mean() > 0.999
-    both = hit_ref & hit_mxu
-    np.testing.assert_allclose(t_mxu[both], t_ref[both], rtol=5e-4,
-                               atol=1e-4)

@@ -1,6 +1,6 @@
 """Parity coverage for the env-gated kernel variants (verdict r4 #3).
 
-HRT_MXU_PICK / HRT_KEY_MODE / HRT_NO_COHSORT / HRT_BLOCK are read ONCE
+HRT_KEY_MODE / HRT_NO_COHSORT / HRT_BLOCK / ... are read ONCE
 at module import (trace-time env reads are invisible to the jit cache —
 the failure class that erased round 3), so each variant runs in a fresh
 subprocess (tests/_variant_worker.py) and its results are compared
@@ -19,12 +19,10 @@ _WORKER = os.path.join(os.path.dirname(__file__), "_variant_worker.py")
 def _run_variant(tmp_path, name, env_overrides):
     out = tmp_path / f"{name}.npz"
     env = dict(os.environ)
-    for knob in ("HRT_MXU_PICK", "HRT_KEY_MODE", "HRT_NO_COHSORT",
-                 "HRT_BLOCK", "HRT_FORCE_STREAM", "HRT_STREAM_BLOCK",
-                 "HRT_SPHERE_KERNEL", "HRT_SPHERE_BLOCK",
-                 "HRT_SPHERE_MXU", "HRT_PALLAS_INTERPRET",
-                 "HRT_UNSORT_MODE", "HRT_CORRIDOR_MIN_K", "HRT_BVH_SAH",
-                 "HRT_NO_PALLAS", "HRT_NO_NATIVE"):
+    for knob in ("HRT_KEY_MODE", "HRT_NO_COHSORT", "HRT_BLOCK",
+                 "HRT_PALLAS_INTERPRET", "HRT_UNSORT_MODE",
+                 "HRT_CORRIDOR_MIN_K", "HRT_BVH_SAH", "HRT_NO_PALLAS",
+                 "HRT_NO_NATIVE"):
         env.pop(knob, None)
     env.update(env_overrides)
     r = subprocess.run([sys.executable, _WORKER, str(out)], env=env,
@@ -71,8 +69,6 @@ def _assert_matches(ref, var, name):
 
 
 @pytest.mark.parametrize("name,env", [
-    ("mxu_pick", {"HRT_MXU_PICK": "1"}),
-    ("key_pallas", {"HRT_KEY_MODE": "pallas"}),
     ("key_corridor", {"HRT_KEY_MODE": "corridor"}),
     # auto mode flipped to corridor on ANY cluster count
     ("auto_corridor_min1", {"HRT_CORRIDOR_MIN_K": "1"}),
@@ -87,17 +83,6 @@ def _assert_matches(ref, var, name):
     ("unsort_scatter", {"HRT_UNSORT_MODE": "scatter"}),
     ("unsort_argsort", {"HRT_UNSORT_MODE": "argsort"}),
     ("block_256", {"HRT_BLOCK": "256"}),
-    # route the small test mesh through the HBM-streaming kernel,
-    # including the K -> STREAM_KC bounds padding
-    ("force_stream", {"HRT_FORCE_STREAM": "1"}),
-    ("stream_block_64", {"HRT_FORCE_STREAM": "1",
-                         "HRT_STREAM_BLOCK": "64"}),
-    # sphere-path variants (worker routes a 300-sphere scene through
-    # ir.intersect_scene, so these knobs are exercised end-to-end)
-    ("sphere_kernel", {"HRT_SPHERE_KERNEL": "1"}),
-    ("sphere_kernel_b256", {"HRT_SPHERE_KERNEL": "1",
-                            "HRT_SPHERE_BLOCK": "256"}),
-    ("sphere_mxu", {"HRT_SPHERE_MXU": "1"}),
 ])
 def test_variant_matches_default(tmp_path, name, env):
     ref = _baseline(tmp_path)

@@ -1,10 +1,12 @@
 """Pallas kernel parity: the fused traversal/intersection kernel
 (kernels/mesh_traverse.py) must agree with the XLA exact traversal
-(ops/intersect.py:intersect_mesh_clustered) — interpreter mode on CPU."""
+(ops/intersect.py:intersect_mesh_clustered) — interpreter mode on CPU —
+plus the wrapper's padding, shape checks and choice of backend."""
 import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from hobbyraytracer_tpu.core.mathx import BIG
 from hobbyraytracer_tpu.core.types import Rays
@@ -142,57 +144,145 @@ def test_pallas_full_scene_render_matches_xla():
             assert (np.abs(uv2 - uv_x) < 2e-3).all(axis=1).mean() > 0.98
 
 
-def test_stream_kernel_matches_resident_bitwise():
-    """The HBM-streaming kernel (kernels._kernel_stream) must agree with
-    the VMEM-resident kernel EXACTLY — same visit policy, same math —
-    including when K is padded up to the STREAM_KC slab-chunk multiple
-    (the pad once produced entry-0 boxes and out-of-bounds cluster DMAs,
-    a real TPU fault; see _traverse_stream's pad comment)."""
-    import jax.numpy as jnp
+def _traverse(r, tv, tid, bmin, bmax, block, interpret=True):
+    """(t, gid, hit) straight from the kernel at a given block size."""
     from hobbyraytracer_tpu.kernels import mesh_traverse as kmod
 
-    verts, idx = _random_mesh(5, n_tris=900)   # K=8 << STREAM_KC: pads
+    n = r.o.shape[0]
+    n_pad = -(-n // block) * block
+    rays8 = (jnp.zeros((8, n_pad)).at[3:6].set(1.0)
+             .at[:3, :n].set(r.o.T).at[3:6, :n].set(r.d.T).at[6, :n].set(1))
+    soa = kmod.pack_mesh_soa(tv, jnp.zeros(tv.shape),
+                             jnp.zeros(tv.shape[:3] + (2,)))
+    out, gid = kmod.traverse_clusters_pallas(
+        rays8, kmod.pack_bounds(bmin, bmax), soa, tid,
+        interpret=interpret, block=block)
+    return out[0, :n], gid[:n], out[0, :n] < BIG
+
+
+@pytest.mark.parametrize("block", [8, 64])
+def test_kernel_result_independent_of_block(block):
+    """Blocks only change the visit order: t and hits are identical for
+    any power-of-two block, the winner differs only on exact t-ties."""
+    verts, idx = _random_mesh(4, n_tris=700)
+    tables = _tables(verts, idx)
+    r = _rays(5, 300)
+    ref = _traverse(r, *tables, block=32)
+    out = _traverse(r, *tables, block=block)
+    np.testing.assert_array_equal(np.asarray(out[2]), np.asarray(ref[2]))
+    np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(ref[0]))
+    assert (np.asarray(out[1]) == np.asarray(ref[1])).mean() > 0.99
+
+
+def test_kernel_multi_chunk_row_matches_xla():
+    """A mesh with more clusters than one ROW_CHUNK holds its entry row as
+    several register chunks (and pads K to a chunk multiple with never-hit
+    boxes)."""
+    from hobbyraytracer_tpu.kernels import mesh_traverse as kmod
+
+    verts, idx = _random_mesh(6, n_tris=(kmod.ROW_CHUNK + 100) * 32,
+                              spread=30.0)
+    tv, tid, bmin, bmax = _tables(verts, idx, leaf_size=32)
+    assert tid.shape[0] > kmod.ROW_CHUNK
+    r = _rays(7, 200, spread=40.0)
+    t_x, g_x, h_x = isect.intersect_mesh_clustered(r, tv, tid, bmin, bmax,
+                                                   BIG)
+    t_p, g_p, h_p, _, _ = isect.intersect_mesh_clustered_pallas(
+        r, tv, tid, bmin, bmax, BIG, interpret=True)
+    np.testing.assert_array_equal(np.asarray(h_p), np.asarray(h_x))
+    m = np.asarray(h_x)
+    assert m.sum() > 20
+    np.testing.assert_allclose(np.asarray(t_p)[m], np.asarray(t_x)[m],
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("k,chunk,k_pad", [
+    (1, 1, 1), (30, 32, 32), (822, 1024, 1024), (1024, 1024, 1024),
+    (1500, 1024, 2048)])
+def test_row_geometry(k, chunk, k_pad):
+    from hobbyraytracer_tpu.kernels import mesh_traverse as kmod
+
+    assert kmod.row_geometry(k) == (chunk, k_pad)
+
+
+@pytest.mark.parametrize("n_rays,block,leaf", [
+    (100, 32, 128),     # rays not a multiple of the block
+    (96, 24, 128),      # block not a power of two
+    (96, 32, 48),       # leaf not a multiple of LEAF_TILE
+])
+def test_traverse_rejects_bad_shapes(n_rays, block, leaf):
+    from hobbyraytracer_tpu.kernels import mesh_traverse as kmod
+
+    with pytest.raises(ValueError):
+        kmod.traverse_clusters_pallas(
+            jnp.zeros((8, n_rays)), jnp.zeros((8, 2)),
+            jnp.zeros((2, 24, leaf)), jnp.zeros((2, leaf), jnp.int32),
+            interpret=True, block=block)
+
+
+def test_wrapper_pads_rays_and_never_hits_padding():
+    """The wrapper pads the wavefront to whole blocks; padded and invalid
+    rays report no hit, and outputs keep the caller's ray count."""
+    verts, idx = _random_mesh(8, n_tris=300)
     tv, tid, bmin, bmax = _tables(verts, idx)
-    rng = np.random.default_rng(11)
-    nrm = rng.normal(0, 1, verts.shape).astype(np.float32)
-    uvs = rng.uniform(0, 1, (len(verts), 2)).astype(np.float32)
-    corner = idx[np.maximum(np.asarray(tid), 0)]
-    tn, tu = jnp.asarray(nrm[corner]), jnp.asarray(uvs[corner])
-    r = _rays(6, 700)
-    t_r, g_r, h_r, n_r, u_r = isect.intersect_mesh_clustered_pallas(
-        r, tv, tid, bmin, bmax, BIG, interpret=True,
-        tri_normals=tn, tri_uvs=tu)
-    soa = kmod.pack_mesh_soa(tv, tn, tu)
-    stream = kmod.pack_mesh_stream(soa, tid)
-    t_s, g_s, h_s, n_s, u_s = isect.intersect_mesh_clustered_pallas(
-        r, None, tid, bmin, bmax, BIG, interpret=True,
-        tri_soa=stream, bounds8=kmod.pack_bounds(bmin, bmax))
-    np.testing.assert_array_equal(np.asarray(h_s), np.asarray(h_r))
-    np.testing.assert_array_equal(np.asarray(t_s), np.asarray(t_r))
-    np.testing.assert_array_equal(np.asarray(g_s), np.asarray(g_r))
-    np.testing.assert_array_equal(np.asarray(n_s), np.asarray(n_r))
-    np.testing.assert_array_equal(np.asarray(u_s), np.asarray(u_r))
+    r = _rays(9, 37)
+    valid = np.ones((37,), bool)
+    valid[::2] = False
+    t, g, h, n, uv = isect.intersect_mesh_clustered_pallas(
+        r, tv, tid, bmin, bmax, BIG, ray_valid=jnp.asarray(valid),
+        interpret=True)
+    assert t.shape == g.shape == h.shape == (37,)
+    assert n.shape == (37, 3) and uv.shape == (37, 2)
+    h = np.asarray(h)
+    assert not h[~valid].any()
+    assert (np.asarray(g)[~h] == -1).all()
+    assert (np.asarray(t)[~h] == BIG).all()
 
 
-def test_oversized_mesh_routes_to_stream_tables():
-    """A mesh past the resident kernel's VMEM ceiling must get 32-row
-    streaming tables from the scene build and still resolve to the
-    Pallas backend (round-4 verdict #1: no more silent ~5x XLA
-    fallback)."""
-    from hobbyraytracer_tpu.kernels import mesh_traverse as kmod
+@pytest.mark.parametrize("env,expect", [
+    ({}, ("xla", False)),
+    ({"HRT_PALLAS_INTERPRET": "1"}, ("pallas", True)),
+    ({"HRT_PALLAS_INTERPRET": "1", "HRT_NO_PALLAS": "1"}, ("xla", False)),
+])
+def test_mesh_backend_dispatch_on_cpu(monkeypatch, env, expect):
+    """auto resolves to the XLA find on the CPU, to the kernel in
+    interpret mode only when a test asks, and HRT_NO_PALLAS wins."""
     from hobbyraytracer_tpu.scene import ir as scene_ir
-    from hobbyraytracer_tpu.scene.build import _mesh_geom
-    from hobbyraytracer_tpu.scene.procgen import teapot_hires
 
-    m = teapot_hires()                         # ~105k tris: > ceiling
-    geom = _mesh_geom(m, 0)
-    k, leaf = geom.cluster_id.shape
-    assert not kmod.mesh_fits_vmem(k, leaf)
-    assert kmod.mesh_fits_stream(k, leaf)
-    assert geom.tri_soa.shape[1] == kmod.STREAM_ROWS
-    os.environ["HRT_PALLAS_INTERPRET"] = "1"   # CPU: route as on-TPU
-    try:
-        backend, _ = scene_ir._resolve_mesh_backend("auto", geom)
-    finally:
-        del os.environ["HRT_PALLAS_INTERPRET"]
-    assert backend == "pallas"
+    for k in ("HRT_PALLAS_INTERPRET", "HRT_NO_PALLAS"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    verts, idx = _random_mesh(1, n_tris=200)
+    _, tid, _, _ = _tables(verts, idx)
+    mesh = scene_ir.MeshGeom(verts=None, normals=None, uvs=None,
+                             indices=None, mat_id=None, cluster_id=tid,
+                             use_bvh=True)
+    assert scene_ir._resolve_mesh_backend("auto", mesh) == expect
+    diff = scene_ir._resolve_mesh_backend("auto_diff", mesh)
+    assert diff == (("pallas_replay", True) if expect[0] == "pallas"
+                    else expect)
+    assert scene_ir._resolve_mesh_backend("xla", mesh) == ("xla", False)
+
+
+@pytest.mark.parametrize("platform,expect", [
+    ("gpu", (True, False)), ("cpu", (False, False))])
+def test_pallas_platform(monkeypatch, platform, expect):
+    """Compiled kernel on a GPU, none on the CPU; any other platform is
+    an error, never a silent fallback."""
+    import jax
+
+    from hobbyraytracer_tpu.scene import ir as scene_ir
+
+    class Dev:
+        pass
+
+    dev = Dev()
+    dev.platform = platform
+    for k in ("HRT_PALLAS_INTERPRET", "HRT_NO_PALLAS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(jax, "devices", lambda *a: [dev])
+    assert scene_ir._pallas_platform() == expect
+    dev.platform = "rocm"
+    with pytest.raises(RuntimeError, match="rocm"):
+        scene_ir._pallas_platform()

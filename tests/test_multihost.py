@@ -1,6 +1,6 @@
 """Real multi-process jax.distributed test (parallel/shard.init_multihost).
 
-Spawns TWO separate python processes (the TPU analogue of two hosts),
+Spawns TWO separate python processes (standing in for two hosts),
 each calling init_multihost against a local coordinator, then running a
 shard_map psum over the global 2-device mesh and a sharded wavefront
 render slice. Requires the package to be importable WITHOUT initializing
